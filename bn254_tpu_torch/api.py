@@ -1,0 +1,111 @@
+"""High-level batched device API: sign / verify.
+
+Counterpart of `bn254_tpu/api.py` (`batch_sign`, `batch_verify`). Bridges
+host points (Python ints) and the device pipeline (Montgomery limb
+tensors). Both entry points run on the CUDA card unless the caller passes
+`device="cpu"`; with no card and no `device=` they raise.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .curve import g1 as DG1
+from .curve import jacobian as J
+from .dist import batch_verify as BV
+from .fields import limbs as L
+from .hash.tai_batch import hash_to_g1_device
+from .host import curve as HC
+from .utils import convert as CV
+
+
+class Signature(NamedTuple):
+    """A BLS signature: a host Jacobian G1 point (X, Y, Z ints)."""
+
+    point: tuple
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device` as a torch.device; None means the CUDA card, which must
+    exist (the CPU is used only when asked for)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+def _scalar(k) -> int:
+    return int(getattr(k, "scalar", k))
+
+
+@torch.inference_mode()
+def batch_sign(messages: list[bytes], private_keys, config=None,
+               device=None) -> list[Signature]:
+    """Sign a batch of messages on the device: [sk_i] H(m_i).
+
+    private_keys: ints or objects with an int `.scalar`. Device pipeline:
+    batched SHA-256 try-and-increment hash, a batched 256-step scalar
+    ladder and one batched affine conversion.
+    """
+    from . import config as CFG
+
+    cfg = config or CFG.DEFAULT
+    if len(messages) != len(private_keys):
+        raise ValueError("one private key per message")
+    dev = resolve_device(device)
+    hx, hy = hash_to_g1_device(messages, cfg.k_candidates, dev)
+    sk = CV.scalars_to_device([_scalar(k) for k in private_keys], dev)
+    h = J.JPoint(hx, hy, L.mont_one(hx.batch_shape, dev))
+    sx, sy, inf = DG1.to_affine(DG1.scalar_mul(h, sk))
+    return [
+        Signature(HC.G1_IDENTITY if aff is None else HC.g1_from_affine(aff))
+        for aff in DG1.to_host_affine(sx, sy, inf)
+    ]
+
+
+@torch.inference_mode()
+def batch_verify(messages: list[bytes], signatures, public_keys,
+                 mode: str = "independent", config=None, device=None,
+                 weights=None):
+    """Verify a batch of (message, signature, public key) tuples.
+
+    signatures / public_keys: objects with a `.point` host Jacobian point
+    (G1 and G2). mode="independent": per-tuple bools (np.ndarray), each
+    tuple checked on its own. mode="fused": ONE combined check with random
+    linear-combination weights and a single shared final exponentiation
+    (returns a bool: all valid); a forged tuple passes with probability
+    ~2^-rlc_bits. mode="adaptive": per-tuple bools at the fused cost when
+    every tuple is valid, with the independent tier as the fallback.
+    weights: explicit RLC weights (GlvWeights, PlainWeights or ints);
+    None draws fresh cryptographic ones per `config.glv_weights`.
+    """
+    from . import config as CFG
+
+    cfg = config or CFG.DEFAULT
+    n = len(messages)
+    if len(signatures) != n or len(public_keys) != n:
+        raise ValueError("one signature and one public key per message")
+    if mode not in ("independent", "fused", "adaptive"):
+        raise ValueError(f"unknown mode {mode!r}")
+    dev = resolve_device(device)
+    hx, hy = hash_to_g1_device(messages, cfg.k_candidates, dev)
+    sx, sy = CV.g1_batch_to_device_affine([s.point for s in signatures], dev)
+    pqx, pqy = CV.g2_batch_to_device_affine([k.point for k in public_keys], dev)
+    if mode == "independent":
+        return BV.verify_batch_independent(hx, hy, sx, sy, pqx, pqy).cpu().numpy()
+    if weights is None:
+        if cfg.glv_weights:
+            weights = BV.random_weights(n, cfg.rlc_bits, dev)
+        else:
+            weights = BV.random_weights_plain(n, cfg.rlc_bits)
+    if mode == "adaptive":
+        return np.asarray(BV.verify_batch_adaptive(
+            hx, hy, sx, sy, pqx, pqy, weights=weights, nbits=cfg.rlc_bits
+        ).cpu())
+    return bool(BV.verify_batch_fused(hx, hy, sx, sy, pqx, pqy, weights,
+                                      nbits=cfg.rlc_bits))

@@ -1,0 +1,328 @@
+"""Batched BLS verification on one device (the throughput workload).
+
+Counterpart of `bn254_tpu/dist/batch_verify.py`, single-device tiers only:
+
+1. `verify_batch_independent` — N independent (H(m), sig, pk) tuples:
+   each tuple is its own 2-pair product check with its own final
+   exponentiation (the pair axis stacked in front of the batch axis).
+2. `verify_batch_fused` — N tuples fused into ONE pairing-product check
+   with random linear-combination weights:
+   prod_i e([w_i]H_i, pk_i) * e(-sum_i [w_i]sig_i, G2) == 1, a single
+   shared final exponentiation.
+3. `verify_batch_adaptive` — tier 2 first; only a rejected batch pays for
+   tier 1, which then says which tuples failed.
+
+RLC weights are cryptographic (`secrets`, curve/glv.py); every entry point
+also accepts explicit weights.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import secrets
+
+import torch
+
+from ..curve import g1 as DG1
+from ..curve import glv as GLV
+from ..curve import jacobian as J
+from ..fields import limbs as L
+from ..fields import tower as T
+from ..host import curve as HC
+from ..pairing import final_exp as FE
+from ..pairing import miller as M
+from ..pairing import pairing as DP
+from ..utils import convert as CV
+
+
+def _neg_g2_one(batch_shape, device):
+    return CV.g2_const_affine(HC.g2_neg(HC.G2_ONE), batch_shape, device)
+
+
+# ---------------------------------------------------------------------------
+# Tier 1: independent batch verification
+# ---------------------------------------------------------------------------
+
+
+def _independent_pairs(hx, hy, sx, sy, pqx, pqy):
+    B = hx.batch_shape[-1]
+    # pair axis in front of the batch axis: (18, 2, B)
+    px = L.stack([hx, sx])
+    py = L.stack([hy, sy])
+    ngx, ngy = _neg_g2_one((B,), hx.device)
+    qx = T.fq2_stack([pqx, ngx])
+    qy = T.fq2_stack([pqy, ngy])
+    return px, py, qx, qy
+
+
+@torch.inference_mode()
+def verify_batch_independent(hx, hy, sx, sy, pqx, pqy) -> torch.Tensor:
+    """N independent verifies -> bool (B,).
+
+    hx/hy: hash points H(m_i) (18, B); sx/sy: signatures (18, B);
+    pqx/pqy: public keys (tower.Fq2 with (18, B) components).
+    Each tuple checks e(H, pk) * e(sig, -G2::one) == 1 with its own final
+    exponentiation (exact per-tuple accept/reject).
+    """
+    return DP.pairing_check(*_independent_pairs(hx, hy, sx, sy, pqx, pqy))
+
+
+# ---------------------------------------------------------------------------
+# Tier 2: fused batch verification (random linear combination)
+# ---------------------------------------------------------------------------
+
+
+def random_weights(n: int, bits: int | None = None, device="cpu"):
+    """Cryptographic RLC weights in GLV form (first fixed to 1)."""
+    if bits is None:
+        from .. import config as C
+
+        bits = C.DEFAULT.rlc_bits
+    return GLV.random_glv_weights(n, bits, device)
+
+
+def random_weights_plain(n: int, bits: int | None = None):
+    """Plain int weights, uniform over [1, 2^bits) (first fixed to 1).
+    Zero is redrawn: an unweighted tuple would drop out of the check."""
+    if bits is None:
+        from .. import config as C
+
+        bits = C.DEFAULT.rlc_bits
+
+    def draw():
+        while True:
+            w = secrets.randbits(bits)
+            if w:
+                return w
+
+    return [1] + [draw() for _ in range(n - 1)]
+
+
+@dataclasses.dataclass(frozen=True)
+class PlainWeights:
+    """Device-resident plain RLC weights, validated at conversion time
+    (`weights_to_device`); `bits` is the ladder length they fit."""
+
+    w: L.El
+    bits: int
+
+
+def weights_to_device(weights, bits: int | None = None,
+                      device="cpu") -> PlainWeights:
+    """Validate host int weights against `bits` (default config.rlc_bits)
+    and convert ONCE to a device tensor reusable across many calls."""
+    if bits is None:
+        from .. import config as C
+
+        bits = min(int(C.DEFAULT.rlc_bits), 256)
+    return PlainWeights(
+        CV.scalars_to_device(_check_weights(weights, bits), device), bits
+    )
+
+
+def _check_weights(weights, bits: int):
+    """Host-side guard: every RLC weight must fit the ladder length."""
+    for w in weights:
+        if int(w) >> bits:
+            raise ValueError(
+                f"RLC weight {int(w):#x} exceeds {bits} bits "
+                "(config.rlc_bits); the weight ladder would truncate it"
+            )
+    return weights
+
+
+def _resolve_weights(weights, nbits: int | None, device):
+    """Normalise a weights argument to (device weights, ladder bits).
+
+    weights: GlvWeights (carries its own validated width), PlainWeights
+    (validated at conversion), or a host sequence of ints, validated HERE
+    against the ladder length. Raw El tensors are rejected: their bound
+    cannot be checked on the host, and an oversize weight would silently
+    truncate in the ladder and weaken the 2^-rlc_bits forgery bound.
+    """
+    if isinstance(weights, GLV.GlvWeights):
+        return weights.to(device), weights.half_bits
+    if isinstance(weights, PlainWeights):
+        return L.El(weights.w.arr.to(device), weights.w.vmax,
+                    weights.w.lmax), weights.bits
+    if isinstance(weights, L.El):
+        raise TypeError(
+            "raw El weight tensors are not accepted (their < 2^rlc_bits "
+            "bound cannot be validated host-side); pass a GlvWeights or "
+            "a host list of ints"
+        )
+    if nbits is None:
+        from .. import config as C
+
+        nbits = min(int(C.DEFAULT.rlc_bits), 256)
+    return CV.scalars_to_device(_check_weights(weights, nbits), device), nbits
+
+
+def _apply_weights(hx, hy, sx, sy, w, nbits: int):
+    """([w_i]H_i, [w_i]sig_i) for both weight forms: GLV weights run ONE
+    Shamir ladder over the (H, sig) pair axis, plain weights the generic
+    nbits-step ladder."""
+    p = J.JPoint(
+        L.stack([hx, sx]),
+        L.stack([hy, sy]),
+        L.mont_one((2,) + tuple(hx.batch_shape), hx.device),
+    )
+    if isinstance(w, GLV.GlvWeights):
+        wp = GLV.shamir_scalar_mul(p, w)
+    else:
+        wp = DG1.scalar_mul(p, w, nbits)
+    xs = L.unstack(wp.x, 2)
+    ys = L.unstack(wp.y, 2)
+    zs = L.unstack(wp.z, 2)
+    return J.JPoint(xs[0], ys[0], zs[0]), J.JPoint(xs[1], ys[1], zs[1])
+
+
+def _el_append(a: L.El, b: L.El) -> L.El:
+    """Concat a scalar-batch El onto the trailing batch axis of `a`."""
+    bb = b.arr.reshape(tuple(b.arr.shape) + (1,) * (a.arr.dim() - b.arr.dim()))
+    bb = bb.expand(tuple(a.arr.shape[:-1]) + (1,))
+    return L.El(
+        torch.cat([a.arr, bb], dim=-1),
+        max(a.vmax, b.vmax),
+        max(a.lmax, b.lmax),
+    )
+
+
+def _g1_tree_sum(p: J.JPoint, axis: int = 0) -> J.JPoint:
+    """Tree-sum a batched Jacobian G1 point along a batch axis (an odd
+    leftover row rides along to the next round)."""
+    taxis = axis + 1
+
+    def take(start, stop):
+        return lambda e: L.El(e.arr.narrow(taxis, start, stop - start),
+                              e.vmax, e.lmax)
+
+    n = p.x.arr.shape[taxis]
+    while n > 1:
+        half = n // 2
+        s = DG1.add(L.tree_map(take(0, half), p),
+                    L.tree_map(take(half, 2 * half), p))
+        if n % 2:
+            rest = L.tree_map(take(2 * half, n), p)
+            s = DP._cat_els(s, rest, taxis)
+            n = half + 1
+        else:
+            n = half
+        p = s
+    return L.tree_map(lambda e: L.El(e.arr.squeeze(taxis), e.vmax, e.lmax), p)
+
+
+def _fused_points(hx, hy, sx, sy, pqx, pqy, w, nbits: int):
+    """Stage A of the fused check: weight ladders, signature tree-sum, and
+    the (B+1)-row point batch — the B weighted hash points plus the
+    signature-sum row S = sum_i [w_i]sig_i with -G2::one as its partner.
+    Everything affinizes in ONE batched pass."""
+    wh, ws = _apply_weights(hx, hy, sx, sy, w, nbits)
+    s_sum = _g1_tree_sum(ws)
+
+    p_all = J.JPoint(
+        _el_append(wh.x, s_sum.x),
+        _el_append(wh.y, s_sum.y),
+        _el_append(wh.z, s_sum.z),
+    )
+    px, py, inf = DG1.to_affine(p_all)
+
+    ngx, ngy = _neg_g2_one((1,), hx.device)
+    qx = T.Fq2(_el_append(pqx.c0, ngx.c0), _el_append(pqx.c1, ngx.c1))
+    qy = T.Fq2(_el_append(pqy.c0, ngy.c0), _el_append(pqy.c1, ngy.c1))
+    return px, py, qx, qy, inf
+
+
+def _miller_reduce(px, py, qx, qy, inf):
+    """Stage B: batched Miller loop + Fq12 product -> scalar Fq12. The inf
+    mask makes an identity row contribute 1 (e(O, Q) == 1)."""
+    f = M.miller_loop(px, py, qx, qy, inf_mask=inf)
+    return T.fq12_retag(DP.fq12_reduce_mul(f, axis=0))
+
+
+@torch.inference_mode()
+def verify_batch_fused(hx, hy, sx, sy, pqx, pqy, weights,
+                       nbits: int | None = None) -> torch.Tensor:
+    """Fused check: prod_i e([w_i]H_i, pk_i) * e(S, -G2) == 1 where
+    S = sum_i [w_i]sig_i. Returns a 0-dim bool tensor on the device.
+
+    weights: GlvWeights / PlainWeights / list of ints (`_resolve_weights`).
+    One shared final exponentiation for the whole batch.
+    """
+    w, nb = _resolve_weights(weights, nbits, hx.device)
+    pts = _fused_points(hx, hy, sx, sy, pqx, pqy, w, nb)
+    f_red = _miller_reduce(*pts)
+    return T.fq12_is_one(FE.final_exp(f_red))
+
+
+class AdaptiveResult:
+    """Deferred result of `verify_batch_adaptive(defer=True)`, made without
+    a host synchronisation: the pre-check bit is copied to pinned host
+    memory on the device's stream and a CUDA event marks its arrival, so
+    a caller can enqueue the next batch before reading this one.
+
+    per_tuple: device (B,) bool — the pre-check bit broadcast batch-wide.
+      For a batch that passes the pre-check this IS the final answer.
+    resolve(): waits for the bit; on rejection runs the exact independent
+      fallback and returns its per-tuple bools instead.
+    """
+
+    def __init__(self, per_tuple, ok_host, event, fallback):
+        self.per_tuple = per_tuple
+        self._ok_host = ok_host
+        self._event = event
+        self._fallback = fallback
+        self._resolved = None
+
+    def resolve(self) -> torch.Tensor:
+        if self._resolved is None:
+            if self._event is not None:
+                self._event.synchronize()
+            if bool(self._ok_host):
+                self._resolved = self.per_tuple
+            else:
+                self._resolved = self._fallback()
+        return self._resolved
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.resolve().cpu().numpy()
+        return a if dtype is None else a.astype(dtype)
+
+
+@torch.inference_mode()
+def verify_batch_adaptive(hx, hy, sx, sy, pqx, pqy,
+                          weights=None, nbits: int | None = None,
+                          defer: bool = False):
+    """Per-tuple results at fused-tier cost for the common all-valid case:
+    run the fused RLC check first (ONE shared final exp); if it accepts,
+    every tuple is valid (up to the 2^-rlc_bits RLC soundness bound). On
+    rejection, fall back to the exact independent tier to report WHICH
+    tuples failed.
+
+    weights=None draws fresh cryptographic ones per config.glv_weights.
+    defer=False: returns a (B,) bool tensor. defer=True: returns an
+    `AdaptiveResult` at once; call .resolve() (or np.asarray) for the bools.
+    """
+    B = hx.batch_shape[-1]
+    if weights is None:
+        from .. import config as C
+
+        if C.DEFAULT.glv_weights:
+            weights = random_weights(B, nbits, hx.device)
+        else:
+            weights = random_weights_plain(B, nbits)
+    ok = verify_batch_fused(hx, hy, sx, sy, pqx, pqy, weights, nbits=nbits)
+    per_tuple = ok.reshape(1).expand(B)
+    if ok.is_cuda:
+        ok_host = torch.empty((), dtype=torch.bool, pin_memory=True)
+        ok_host.copy_(ok, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+    else:
+        ok_host, event = ok, None
+    res = AdaptiveResult(
+        per_tuple, ok_host, event,
+        lambda: verify_batch_independent(hx, hy, sx, sy, pqx, pqy),
+    )
+    return res if defer else res.resolve()
+

@@ -1,0 +1,94 @@
+"""Final exponentiation f^((p^12-1)/r) for BN254.
+
+Counterpart of `bn254_tpu/pairing/final_exp.py` in the form its batch
+verifiers run: the staged pipeline `final_exp_staged` (easy part, three
+u-exponentiations, hard-part combination, each stage retagging its own
+output) with the scan form of `exp_u`. The JAX package's replicated-block
+trick for scalar inputs (`final_exp_wide`) works around slow batch-1
+programs on the TPU and is not carried over: a scalar final
+exponentiation here runs on (18,) tensors.
+
+Easy part (p^6-1)(p^2+1), then the Devegili-style hard-part chain.
+"""
+
+from __future__ import annotations
+
+from ..constants import U
+from ..fields import limbs as L
+from ..fields import tower as T
+
+Fq12 = T.Fq12
+
+_U_BITS = [int(b) for b in bin(U)[2:]][1:]  # MSB consumed by init
+assert len(_U_BITS) % 2 == 0  # 62 bits -> 31 two-bit windows
+_U_WINDOWS = [
+    2 * _U_BITS[i] + _U_BITS[i + 1] for i in range(0, len(_U_BITS), 2)
+]
+
+
+def exp_u(f: Fq12, window_digits=None) -> Fq12:
+    """f^u for a CYCLOTOMIC f (all final-exp call sites qualify).
+
+    2-bit windowed square-and-multiply over the fixed bits of u: per
+    window two Granger-Scott squarings and one multiply by the table
+    entry {1, f, f^2, f^3}[digit]. A zero window multiplies by `one`, as
+    the JAX scan does, so the limbs match it one for one.
+
+    window_digits: schedule override (tests use a truncated prefix).
+    """
+    e = f.c0.c0.c0
+    f = T.fq12_retag(f)
+    f2 = T.fq12_retag(T.fq12_cyc_sq(f))
+    f3 = T.fq12_retag(T.fq12_mul(f2, f))
+    one = T.fq12_retag(T.fq12_one(e.batch_shape, e.device))
+    table = (one, f, f2, f3)
+
+    acc = f
+    for w in (_U_WINDOWS if window_digits is None else window_digits):
+        acc = T.fq12_cyc_sq(acc)
+        acc = T.fq12_cyc_sq(T.fq12_retag(acc))
+        acc = T.fq12_retag(T.fq12_mul(T.fq12_retag(acc), table[w]))
+    return acc
+
+
+def easy_part(f: Fq12) -> Fq12:
+    """f^((p^6-1)(p^2+1)) — lands in the cyclotomic subgroup."""
+    f = T.fq12_mul(T.fq12_conj(f), T.fq12_inv(f))  # f^(p^6-1)
+    return T.fq12_mul(T.fq12_frob(f, 2), f)  # ^(p^2+1)
+
+
+def hard_combine(f: Fq12, ft1: Fq12, ft2: Fq12, ft3: Fq12) -> Fq12:
+    """Hard part (p^4-p^2+1)/r given f (cyclotomic) and its u-powers."""
+    fp1 = T.fq12_frob(f, 1)
+    fp2 = T.fq12_frob(f, 2)
+    fp3 = T.fq12_frob(f, 3)
+    y0 = T.fq12_mul(T.fq12_mul(fp1, fp2), fp3)
+    y1 = T.fq12_conj(f)
+    y2 = T.fq12_frob(ft2, 2)
+    y3 = T.fq12_conj(T.fq12_frob(ft1, 1))
+    y4 = T.fq12_conj(T.fq12_mul(ft1, T.fq12_frob(ft2, 1)))
+    y5 = T.fq12_conj(ft2)
+    y6 = T.fq12_conj(T.fq12_mul(ft3, T.fq12_frob(ft3, 1)))
+    # every operand here is cyclotomic -> cyclotomic squares
+    t0 = T.fq12_mul(T.fq12_mul(T.fq12_cyc_sq(y6), y4), y5)
+    t1 = T.fq12_mul(T.fq12_mul(y3, y5), t0)
+    t0 = T.fq12_mul(t0, y2)
+    t1 = T.fq12_cyc_sq(T.fq12_mul(T.fq12_cyc_sq(T.fq12_retag(t1)), t0))
+    return T.fq12_mul(
+        T.fq12_mul(t1, y0), T.fq12_cyc_sq(T.fq12_mul(T.fq12_retag(t1), y1))
+    )
+
+
+def _retag_tight(a: Fq12) -> Fq12:
+    """Retag with the element's own exact bound instead of STD_BOUND
+    (saves cond_sub rounds in the canon of a later is_one)."""
+    return T.fq12_retag(a, max(e.vmax for e in L.tree_leaves(a)))
+
+
+def final_exp(f: Fq12) -> Fq12:
+    """The JAX package's `final_exp_staged`: every stage retags its output."""
+    f = T.fq12_retag(easy_part(T.fq12_retag(f)))
+    ft1 = T.fq12_retag(exp_u(f))
+    ft2 = T.fq12_retag(exp_u(ft1))
+    ft3 = T.fq12_retag(exp_u(ft2))
+    return _retag_tight(hard_combine(f, ft1, ft2, ft3))

@@ -1,0 +1,120 @@
+"""The port's fused batch verification vs the JAX package (the slice whole).
+
+B = 4 valid (H(m), sig, pk) tuples with fixed GLV weights go through both
+packages' fused tier: the stage-A points and the `_miller_reduce` Fq12
+agree limb for limb, the full check accepts in both, and with one
+signature tampered it rejects in both. tests/test_torch_adaptive.py
+covers the adaptive tier and its independent fallback (and runs the
+port's whole `verify_batch_fused` on the valid batch).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from bn254_tpu.curve import glv as JGLV
+from bn254_tpu.dist import batch_verify as JBV
+from bn254_tpu.hash.tai import hash_to_g1
+from bn254_tpu.host import curve as HC
+from bn254_tpu.utils import convert as JCV
+from bn254_tpu_torch.dist import batch_verify as BV
+from bn254_tpu_torch.fields import tower as T
+from bn254_tpu_torch.pairing import final_exp as FE
+from bn254_tpu_torch.utils import convert as CV
+
+B = 4
+BITS = 16  # an 8-step GLV ladder keeps the CPU run short
+PAIRS = [(1, 0), (0x5A, 0xC3), (0x01, 0xFF), (0xE7, 0x00)]
+
+
+def leaves(x):
+    return [x] if hasattr(x, "vmax") else [e for c in x for e in leaves(c)]
+
+
+def parts(x):
+    return [(np.asarray(e.arr), e.vmax, e.lmax) for e in leaves(x)]
+
+
+def assert_same(jx, px):
+    jl, pl = leaves(jx), leaves(px)
+    assert len(jl) == len(pl)
+    for j, p in zip(jl, pl):
+        assert (p.vmax, p.lmax) == (j.vmax, j.lmax)
+        assert np.array_equal(np.asarray(j.arr).astype(np.int64),
+                              p.arr.numpy())
+
+
+def to_port(hx, hy, sx, sy, pqx, pqy):
+    el = lambda e: CV.from_numpy(*parts(e)[0])
+    return (el(hx), el(hy), el(sx), el(sy), CV.fq2_from_numpy(parts(pqx)),
+            CV.fq2_from_numpy(parts(pqy)))
+
+
+@pytest.fixture(scope="module")
+def batch():
+    msgs = [b"tv-%d" % i for i in range(B)]
+    sks = [1000 + 7 * i for i in range(B)]
+    hpts = [hash_to_g1(m) for m in msgs]
+    sigs = [HC.g1_mul(h, k) for h, k in zip(hpts, sks)]
+    pks = [HC.g2_mul(HC.G2_ONE, k) for k in sks]
+    bad = list(sigs)
+    bad[2] = HC.g1_mul(sigs[2], 3)
+    hx, hy = JCV.g1_batch_to_device_affine(hpts)
+    pqx, pqy = JCV.g2_batch_to_device_affine(pks)
+    jw = JGLV.glv_weights_to_device(PAIRS, BITS)
+    pw = CV.glv_weights_from_numpy(np.asarray(jw.a.arr), np.asarray(jw.b.arr),
+                                   BITS)
+    good = (hx, hy, *JCV.g1_batch_to_device_affine(sigs), pqx, pqy)
+    tampered = (hx, hy, *JCV.g1_batch_to_device_affine(bad), pqx, pqy)
+    return good, tampered, jw, pw
+
+
+# One test, in a fresh subprocess (the `isolated` marker of
+# tests/conftest.py): it compiles the JAX staged pipeline's big programs,
+# which must not share an XLA:CPU process with other such compiles (the
+# crash tests/test_dist_verify.py isolates for the same reason).
+@pytest.mark.isolated
+def test_fused_tier_matches_jax(batch):
+    """Stage A points and the `_miller_reduce` Fq12 limb for limb; the full
+    check accepts the valid batch and rejects the tampered one in both."""
+    good, tampered, jw, pw = batch
+    jpts = JBV._fused_points_jit(*good, jw, nbits=BITS // 2)
+    jf = JBV._miller_reduce_jit(*jpts)
+    with torch.inference_mode():
+        ppts = BV._fused_points(*to_port(*good), pw, BITS // 2)
+        pf = BV._miller_reduce(*ppts)
+    assert_same(jpts[:4], ppts[:4])
+    assert np.array_equal(np.asarray(jpts[4]), ppts[4].numpy())
+    assert_same(jf, pf)
+
+    # the port finishes its stage-B output as verify_batch_fused does
+    assert bool(JBV.verify_batch_fused_staged(*good, jw))
+    with torch.inference_mode():
+        assert bool(T.fq12_is_one(FE.final_exp(pf)))
+
+    assert not bool(JBV.verify_batch_fused_staged(*tampered, jw))
+    assert not bool(BV.verify_batch_fused(*to_port(*tampered), pw))
+
+
+def test_weight_forms_are_validated():
+    """GlvWeights, PlainWeights and host ints resolve; a raw El or a weight
+    wider than the ladder is refused (it would weaken the forgery bound)."""
+    jw = JGLV.glv_weights_to_device(PAIRS, BITS)
+    pw = CV.glv_weights_from_numpy(np.asarray(jw.a.arr), np.asarray(jw.b.arr),
+                                   BITS)
+    w, nb = BV._resolve_weights(pw, None, "cpu")
+    assert nb == BITS // 2 and w.a.vmax == 1 << (BITS // 2)
+    plain = BV.weights_to_device([1, 0xFFFF], bits=16)
+    w, nb = BV._resolve_weights(plain, None, "cpu")
+    assert nb == 16 and w.vmax == 1 << 256
+    w, nb = BV._resolve_weights([1, 2, 3], 8, "cpu")
+    assert nb == 8 and w.arr.shape == (18, 3)
+    with pytest.raises(ValueError):
+        BV._resolve_weights([1, 1 << 8], 8, "cpu")
+    with pytest.raises(ValueError):
+        BV.weights_to_device([1 << 16], bits=16)
+    with pytest.raises(TypeError):
+        BV._resolve_weights(w, 8, "cpu")
+    with pytest.raises(ValueError):
+        CV.glv_weights_from_numpy(np.asarray(jw.a.arr), np.asarray(jw.b.arr),
+                                  BITS // 2)  # halves wider than 4 bits
