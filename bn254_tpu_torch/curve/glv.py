@@ -1,8 +1,10 @@
 """GLV endomorphism Shamir ladder for RLC batch-verification weights.
 
-Counterpart of `bn254_tpu/curve/glv.py` (its scan form). Weights are drawn
-directly in GLV form w = a + λ·b (mod r) with a, b uniform (bits//2)-bit,
-where λ is the eigenvalue of φ(x, y) = (β·x, y) on G1. Then
+Counterpart of `bn254_tpu/curve/glv.py`, with its unrolled form (one fused
+kernel launch per ladder step, on CUDA tensors) and its scan form (CPU
+tensors). Weights are drawn directly in GLV form w = a + λ·b (mod r) with
+a, b uniform (bits//2)-bit, where λ is the eigenvalue of φ(x, y) = (β·x, y)
+on G1. Then
 
     [w]P = [a]P + [b]φ(P)
 
@@ -171,15 +173,43 @@ def _bit(arr, i: int):
     return ((arr[i // LIMB_BITS] >> (i % LIMB_BITS)) & 1) != 0
 
 
+def _dbl_add_body_impl(ax: L.El, ay: L.El, az: L.El, sx: L.El, sy: L.El,
+                       sz: L.El):
+    """2*acc + sel (kernel "glv_dbl_add"): Jacobian doubling + COMPLETE
+    masked addition, which handles identity operands and acc == ±sel."""
+    acc = J.double(FqOps, J.JPoint(ax, ay, az))
+    out = J.add(FqOps, acc, J.JPoint(sx, sy, sz))
+    return _pin(out.x), _pin(out.y), _pin(out.z)
+
+
 def shamir_scalar_mul(p: J.JPoint, w: GlvWeights) -> J.JPoint:
     """[a]P + [b]φ(P) by a (bits//2)-step MSB-first Shamir ladder.
 
-    The JAX package's scan form as a Python loop: the 2-bit table index is
-    data (a masked select per step), the schedule is static.
+    The 2-bit table index is data (a masked select per step), the schedule
+    is static. On CUDA tensors each step is one "glv_dbl_add" kernel
+    launch (`_shamir_unrolled`); on CPU tensors the JAX package's scan
+    form as a Python loop (`_shamir_scan`).
     """
     table = _table(p)
+    if T._use_kernels(p.x, w.a):
+        return _shamir_unrolled(table, w, w.half_bits)
+    return _shamir_scan(table, w, w.half_bits)
+
+
+def _shamir_unrolled(table, w: GlvWeights, nbits: int) -> J.JPoint:
+    from ..kernels import fused as FK
+
     acc = table[0]
-    for i in range(w.half_bits - 1, -1, -1):
+    for i in range(nbits - 1, -1, -1):
+        sel = _select_entry(_bit(w.a.arr, i), _bit(w.b.arr, i), table)
+        acc = J.JPoint(*FK.fused_op(_dbl_add_body_impl, "glv_dbl_add",
+                                    *acc, *sel))
+    return acc
+
+
+def _shamir_scan(table, w: GlvWeights, nbits: int) -> J.JPoint:
+    acc = table[0]
+    for i in range(nbits - 1, -1, -1):
         sel = _select_entry(_bit(w.a.arr, i), _bit(w.b.arr, i), table)
         acc = J.double(FqOps, acc)
         acc = _pin_point(J.add(FqOps, acc, sel))

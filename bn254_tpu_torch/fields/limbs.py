@@ -28,6 +28,7 @@ elements are little-endian **15-bit limbs in tensors of shape
 from __future__ import annotations
 
 import functools
+import typing
 
 import numpy as np
 import torch
@@ -54,6 +55,10 @@ _T_LIMIT = 1 << 538
 
 # standard carrier bound used to stabilise loop carriers (see retag)
 STD_BOUND = 1 << 262
+
+# True while a fused body runs as plain code (kernels/fused.py): tower ops
+# inside it must not dispatch to kernels of their own (as in JAX)
+_KERNEL_MODE = False
 
 
 # ---------------------------------------------------------------------------
@@ -90,17 +95,28 @@ class El:
 
 
 def tree_map(fn, x):
-    """Apply `fn` to every El of a NamedTuple tree (Fq2, Fq12, JPoint...)."""
+    """Apply `fn` to every El of a tree of NamedTuples (Fq2, Fq12,
+    JPoint...) and plain tuples, depth first."""
     if isinstance(x, El):
         return fn(x)
-    return type(x)(*[tree_map(fn, c) for c in x])
+    kids = [tree_map(fn, c) for c in x]
+    return tuple(kids) if type(x) is tuple else type(x)(*kids)
 
 
 def tree_leaves(x) -> list:
-    """The Els of a NamedTuple tree, depth first."""
+    """The Els of a tree of NamedTuples and tuples, depth first."""
     if isinstance(x, El):
         return [x]
     return [e for c in x for e in tree_leaves(c)]
+
+
+def tree_from_leaves(tp, leaves):
+    """A value of type `tp` (El or a NamedTuple of annotated El trees such
+    as Fq12 or ProjG2) built from the iterator `leaves`, depth first."""
+    if tp is El:
+        return next(leaves)
+    hints = typing.get_type_hints(tp)
+    return tp(*[tree_from_leaves(hints[f], leaves) for f in tp._fields])
 
 
 def retag(a: El, vmax: int, lmax: int | None = None) -> El:
@@ -417,19 +433,79 @@ def elmap(fn, a: El, vmax: int | None = None, lmax: int | None = None) -> El:
 def pow_fixed(a: El, exponent: int) -> El:
     """a^exponent (Montgomery domain), static exponent.
 
-    Square-and-multiply as a Python loop over the exponent's static bits
-    (the JAX package's scan form). A zero bit keeps the square, as the
-    scan's select does, so skipping its multiply gives the same limbs."""
+    On CUDA tensors `_pow_fixed_fused`: one fused kernel launch per 3-bit
+    window. Elsewhere square-and-multiply as a Python loop over the
+    exponent's static bits (the JAX package's scan form). A zero bit keeps
+    the square, as the scan's select does, so skipping its multiply gives
+    the same limbs."""
     if exponent == 0:
         return mont_one(a.batch_shape, a.device)
     base = retag(norm_limbs(a), STD_BOUND)
+    bits = bin(exponent)[2:]
+    from . import tower as T
+
+    if T._use_kernels(base):
+        return _pow_fixed_fused(base, bits)
     res = base
-    for bit in bin(exponent)[3:]:
+    for bit in bits[1:]:
         res = mont_sqr(res)
         if bit == "1":
             res = mont_mul(res, base)
         res = retag(res, STD_BOUND)
     return res
+
+
+# window width of the fused pow chain (the JAX package's `_POW_WINDOW`)
+_POW_WINDOW = 3
+
+
+def _pin_std(e: El) -> El:
+    return retag(norm_limbs(e), STD_BOUND, 1 << 16)
+
+
+def _pow_step_mul(acc: El, m: El) -> El:
+    """acc^(2^w) * m — one nonzero window (kernel "el_pow_step_mul")."""
+    for _ in range(_POW_WINDOW):
+        acc = mont_sqr(acc)
+    return _pin_std(mont_mul(acc, m))
+
+
+def _pow_step_sq(acc: El) -> El:
+    """acc^(2^w) — one zero window (kernel "el_pow_step_sq")."""
+    for _ in range(_POW_WINDOW):
+        acc = mont_sqr(acc)
+    return _pin_std(acc)
+
+
+def _pow_fixed_fused(base: El, bits: str) -> El:
+    """Windowed square-and-multiply, the counterpart of the JAX package's
+    `_pow_fixed_fused`: MSB-first 3-bit windows of the static exponent
+    `bits` (a binary string), the first (possibly short) one seeding the
+    accumulator from the table {base^1 .. base^7}; then one
+    `el_pow_step_mul` launch per nonzero window, which folds its table
+    entry in, and one `el_pow_step_sq` per zero window."""
+    from ..kernels import fused as FK
+
+    w = _POW_WINDOW
+    lead = len(bits) % w or w
+    head = int(bits[:lead], 2)
+    rest = [int(bits[i:i + w], 2) for i in range(lead, len(bits), w)]
+
+    table = {1: _pin_std(base)}
+    for k in range(2, 1 << w):
+        if k % 2 == 0:
+            table[k] = _pin_std(mont_sqr(table[k // 2]))
+        else:
+            table[k] = _pin_std(mont_mul(table[k - 1], table[1]))
+
+    acc = table[head]  # the leading window starts with the exponent's MSB
+    for win in rest:
+        if win:
+            acc = FK.fused_op(_pow_step_mul, "el_pow_step_mul", acc,
+                              table[win])
+        else:
+            acc = FK.fused_op(_pow_step_sq, "el_pow_step_sq", acc)
+    return acc
 
 
 def inv_mod(a: El) -> El:

@@ -1,7 +1,10 @@
 """Tower fields Fq2 / Fq6 / Fq12 over the lazy limb engine.
 
-Counterpart of `bn254_tpu/fields/tower.py` (its non-fused `_impl` bodies,
-the formula graph the JAX package runs on the CPU). Every tower
+Counterpart of `bn254_tpu/fields/tower.py`. On CUDA tensors `fq12_mul`,
+`fq12_sq` and `fq12_cyc_sq` each run as one fused kernel launch
+(kernels/fused.py), as the JAX package's run as one Pallas kernel; their
+`_impl` bodies, and everything else here, are the plain formula graph the
+JAX package runs on the CPU. Every tower
 multiplication gathers its leaf Fq multiplications into ONE batched
 `mont_mul` call by stacking operands along an internal batch axis (axis 1,
 after the limb axis):
@@ -24,6 +27,7 @@ import torch
 
 from ..constants import MONT_R_MOD_P, P
 from ..host import field as HF
+from ..kernels import fused as FK
 from . import limbs as L
 
 El = L.El
@@ -43,6 +47,20 @@ class Fq6(NamedTuple):
 class Fq12(NamedTuple):
     c0: Fq6
     c1: Fq6
+
+
+def _use_kernels(*els: El) -> bool:
+    """Whether an op runs as a fused CUDA kernel (kernels/fused.py): the
+    Fq12 ops here, `limbs.pow_fixed`, the GLV ladder, and the unrolled
+    Miller loop and exp_u with their bodies. True on CUDA tensors, except
+    inside a fused body run as plain code. The counterpart of the JAX
+    package's `_use_fused`; not a config knob (tests force `_on_card` on
+    the CPU, where `fused_op` then calls the plain bodies)."""
+    return not L._KERNEL_MODE and _on_card(els)
+
+
+def _on_card(els) -> bool:
+    return any(e.arr.is_cuda for e in els)
 
 
 # ---------------------------------------------------------------------------
@@ -314,6 +332,28 @@ def fq6_select(mask, t: Fq6, f: Fq6) -> Fq6:
 
 
 def fq12_mul(a: Fq12, b: Fq12) -> Fq12:
+    """One "fq12_mul" kernel launch on CUDA tensors, else the plain body."""
+    if _use_kernels(*L.tree_leaves(a), *L.tree_leaves(b)):
+        return FK.fused_op(_fq12_mul_impl, "fq12_mul", a, b)
+    return _fq12_mul_impl(a, b)
+
+
+def fq12_sq(a: Fq12) -> Fq12:
+    """One "fq12_sq" kernel launch on CUDA tensors, else the plain body."""
+    if _use_kernels(*L.tree_leaves(a)):
+        return FK.fused_op(_fq12_sq_impl, "fq12_sq", a)
+    return _fq12_sq_impl(a)
+
+
+def fq12_cyc_sq(a: Fq12) -> Fq12:
+    """One "fq12_cyc_sq" kernel launch on CUDA tensors, else the plain
+    body. Valid only on the cyclotomic subgroup."""
+    if _use_kernels(*L.tree_leaves(a)):
+        return FK.fused_op(_fq12_cyc_sq_impl, "fq12_cyc_sq", a)
+    return _fq12_cyc_sq_impl(a)
+
+
+def _fq12_mul_impl(a: Fq12, b: Fq12) -> Fq12:
     """Karatsuba over Fq6: 3 Fq6 muls in one batched call (54 leaves)."""
     astack = fq6_stack([a.c0, a.c1, fq6_add(a.c0, a.c1)])
     bstack = fq6_stack([b.c0, b.c1, fq6_add(b.c0, b.c1)])
@@ -323,7 +363,7 @@ def fq12_mul(a: Fq12, b: Fq12) -> Fq12:
     return fq12_squeeze(Fq12(c0, c1))
 
 
-def fq12_sq(a: Fq12) -> Fq12:
+def _fq12_sq_impl(a: Fq12) -> Fq12:
     """Complex-style squaring: t = c0 c1; c0' = (c0+c1)(c0+v c1) - t - v t;
     c1' = 2t — 2 Fq6 muls in one batched call."""
     t, u = fq6_unstack(
@@ -338,7 +378,7 @@ def fq12_sq(a: Fq12) -> Fq12:
     return fq12_squeeze(Fq12(c0, c1))
 
 
-def fq12_cyc_sq(a: Fq12) -> Fq12:
+def _fq12_cyc_sq_impl(a: Fq12) -> Fq12:
     """Granger-Scott cyclotomic squaring: 18 leaf muls vs fq12_sq's 36.
 
     Valid ONLY for elements of the cyclotomic subgroup (e.g. any easy-part

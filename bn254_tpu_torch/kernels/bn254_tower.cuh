@@ -1,0 +1,779 @@
+// BN254 field, tower and G1 arithmetic for one lane: the device library of
+// the fused kernels (fused.cu) and the CIOS leaf of the montmul kernel.
+//
+// Numbers: little-endian limbs of 15 bits in uint32_t[18], Montgomery radix
+// R = 2^270, p's limbs below. Towers as in fields/tower.py:
+//   Fq2 = Fq[i]/(i^2+1), Fq6 = Fq2[v]/(v^3 - xi), Fq12 = Fq6[w]/(w^2 - v),
+//   xi = 9 + i.
+//
+// `cios` is the leaf multiply, the same arithmetic as the Pallas kernel
+// bn254_tpu/kernels/montmul.py:_montmul_kernel and kernels/montmul.py's
+// plain version: per-step lazy lo/hi column accumulation, one final carry
+// chain, no conditional subtraction. Its contract: operand limbs < 2^16 and
+// a * b + R * p < 2^538 (fields/limbs.py:mont_mul asserts it on the host).
+//
+// Reduction schedule of the Fp/Fq2/.../Fq12 functions (their own, not the
+// plain bodies' lazy one): every Fp they return is fully carried (limbs
+// < 2^15) and below 2p. Then every CIOS operand meets the contract
+// ((2p)^2 + R p < 2^538), the REDC of two such values is again below 2p
+// (ab/R + p < 4p^2/R + p < 2p), and sums and differences come back below 2p
+// with one conditional subtraction or addition of 2p. An input El (value
+// < 2^270, limbs < 2^26) is carried, then brought into [0, 2p) by one CIOS
+// with R mod p (`fp_load`), as the plain pins' `vreduce` does; an output is
+// made canonical (`fp_canon`) before it is stored. Values agree with the
+// plain bodies modulo p; limbs need not.
+//
+// Every function is __host__ __device__ under nvcc (BN_FN) and plain C++
+// under a host compiler, so tests/test_torch_fused_host.py can build the
+// same bodies with g++. With BN254_CHECK_BOUNDS defined (host builds only)
+// every CIOS operand limb is checked < 2^16 and every Fp result < 2p with
+// limbs < 2^15; a failed check counts in `bn254_bound_faults`.
+
+#pragma once
+
+#include <cstdint>
+
+#ifdef __CUDACC__
+#define BN_FN __host__ __device__
+#define BN_NOINLINE __noinline__
+#define BN_INLINE __forceinline__
+#else
+#define BN_FN
+#define BN_NOINLINE __attribute__((noinline))
+#define BN_INLINE inline
+#endif
+
+#if defined(BN254_CHECK_BOUNDS) && !defined(__CUDACC__)
+inline int bn254_bound_faults = 0;
+#define BN_CHECK(cond)                \
+  do {                                \
+    if (!(cond)) ++bn254_bound_faults; \
+  } while (0)
+#else
+#define BN_CHECK(cond) ((void)0)
+#endif
+
+namespace bn254 {
+
+constexpr int kLimbs = 18;
+constexpr int kLimbBits = 15;
+constexpr uint32_t kMask = (1u << kLimbBits) - 1u;
+constexpr uint32_t kPinv0 = 25481u;  // -p^{-1} mod 2^15
+
+#ifdef __CUDACC__
+// p, 2p and R mod p, read at the same index by a whole warp (broadcast)
+static __constant__ uint32_t kPDev[kLimbs] = {
+    0x7D47, 0x30F9, 0x305B, 0x6104, 0x28D3, 0x0E39, 0x245A, 0x40B5, 0x5D97,
+    0x02B0, 0x5A06, 0x022D, 0x1B85, 0x3405, 0x384C, 0x2739, 0x3064, 0x0000};
+static __constant__ uint32_t k2PDev[kLimbs] = {
+    0x7A8E, 0x61F3, 0x60B6, 0x4208, 0x51A7, 0x1C72, 0x48B4, 0x016A, 0x3B2F,
+    0x0561, 0x340C, 0x045B, 0x370A, 0x680A, 0x7098, 0x4E72, 0x60C8, 0x0000};
+static __constant__ uint32_t kRModPDev[kLimbs] = {
+    0x4CC9, 0x3599, 0x74E9, 0x44D3, 0x49DF, 0x43B9, 0x6F66, 0x7F53, 0x7450,
+    0x22C1, 0x0F7C, 0x6C65, 0x49E7, 0x2660, 0x3B5B, 0x71CD, 0x279B, 0x0000};
+#endif
+static const uint32_t kPHost[kLimbs] = {
+    0x7D47, 0x30F9, 0x305B, 0x6104, 0x28D3, 0x0E39, 0x245A, 0x40B5, 0x5D97,
+    0x02B0, 0x5A06, 0x022D, 0x1B85, 0x3405, 0x384C, 0x2739, 0x3064, 0x0000};
+static const uint32_t k2PHost[kLimbs] = {
+    0x7A8E, 0x61F3, 0x60B6, 0x4208, 0x51A7, 0x1C72, 0x48B4, 0x016A, 0x3B2F,
+    0x0561, 0x340C, 0x045B, 0x370A, 0x680A, 0x7098, 0x4E72, 0x60C8, 0x0000};
+static const uint32_t kRModPHost[kLimbs] = {
+    0x4CC9, 0x3599, 0x74E9, 0x44D3, 0x49DF, 0x43B9, 0x6F66, 0x7F53, 0x7450,
+    0x22C1, 0x0F7C, 0x6C65, 0x49E7, 0x2660, 0x3B5B, 0x71CD, 0x279B, 0x0000};
+
+BN_FN BN_INLINE uint32_t p_limb(int i) {
+#ifdef __CUDA_ARCH__
+  return kPDev[i];
+#else
+  return kPHost[i];
+#endif
+}
+
+BN_FN BN_INLINE uint32_t p2_limb(int i) {
+#ifdef __CUDA_ARCH__
+  return k2PDev[i];
+#else
+  return k2PHost[i];
+#endif
+}
+
+BN_FN BN_INLINE uint32_t rmodp_limb(int i) {
+#ifdef __CUDA_ARCH__
+  return kRModPDev[i];
+#else
+  return kRModPHost[i];
+#endif
+}
+
+// ---------------------------------------------------------------------------
+// The leaf: CIOS REDC(a * b), R = 2^270 (bit-exact with montmul_plain)
+// ---------------------------------------------------------------------------
+
+BN_FN BN_INLINE void cios(uint32_t out[kLimbs], const uint32_t av[kLimbs],
+                          const uint32_t bv[kLimbs]) {
+  uint32_t t[kLimbs + 1];
+#pragma unroll
+  for (int j = 0; j <= kLimbs; ++j) t[j] = 0u;
+#pragma unroll
+  for (int i = 0; i < kLimbs; ++i) {
+    const uint32_t ai = av[i];
+#pragma unroll
+    for (int j = 0; j < kLimbs; ++j) {
+      const uint32_t prod = ai * bv[j];  // exact: limbs < 2^16
+      t[j] += prod & kMask;
+      t[j + 1] += prod >> kLimbBits;
+    }
+    const uint32_t m = (t[0] * kPinv0) & kMask;
+#pragma unroll
+    for (int j = 0; j < kLimbs; ++j) {
+      const uint32_t prod = m * p_limb(j);
+      t[j] += prod & kMask;
+      t[j + 1] += prod >> kLimbBits;
+    }
+    const uint32_t carry0 = t[0] >> kLimbBits;  // t[0] & kMask == 0 here
+#pragma unroll
+    for (int j = 0; j < kLimbs; ++j) t[j] = t[j + 1];
+    t[kLimbs] = 0u;
+    t[0] += carry0;
+  }
+  uint32_t c = 0u;
+#pragma unroll
+  for (int i = 0; i < kLimbs; ++i) {
+    const uint32_t v = t[i] + c;
+    out[i] = v & kMask;
+    c = v >> kLimbBits;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Fp: values in [0, 2p), limbs < 2^15
+// ---------------------------------------------------------------------------
+
+struct Fp {
+  uint32_t l[kLimbs];
+};
+
+BN_FN BN_INLINE void fp_check(const Fp& a) {
+#ifdef BN254_CHECK_BOUNDS
+  // limbs < 2^15 and a < 2p (compare from the top limb down)
+  int lt = 0, decided = 0;
+  for (int i = kLimbs - 1; i >= 0; --i) {
+    BN_CHECK(a.l[i] <= kMask);
+    if (!decided && a.l[i] != p2_limb(i)) {
+      lt = a.l[i] < p2_limb(i);
+      decided = 1;
+    }
+  }
+  BN_CHECK(lt);
+#else
+  (void)a;
+#endif
+}
+
+BN_FN BN_NOINLINE void fp_mul(Fp& r, const Fp& a, const Fp& b) {
+#ifdef BN254_CHECK_BOUNDS
+  for (int i = 0; i < kLimbs; ++i) {
+    BN_CHECK(a.l[i] < (1u << 16));
+    BN_CHECK(b.l[i] < (1u << 16));
+  }
+#endif
+  uint32_t out[kLimbs];
+  cios(out, a.l, b.l);
+#pragma unroll
+  for (int i = 0; i < kLimbs; ++i) r.l[i] = out[i];
+  fp_check(r);
+}
+
+// An input value a < 2^270 = R with carried limbs (< 2^15) -> [0, 2p):
+// REDC(a * (R mod p)) = a mod p, below a p / R + p < 2p.
+BN_FN BN_NOINLINE void fp_load(Fp& r, const Fp& a) {
+  Fp k;
+#pragma unroll
+  for (int i = 0; i < kLimbs; ++i) k.l[i] = rmodp_limb(i);
+  fp_mul(r, a, k);
+}
+
+// s in [0, 4p) with limbs < 2^15 -> s or s - 2p, whichever is below 2p
+BN_FN BN_INLINE void fp_fold_2p(Fp& r, const uint32_t s[kLimbs]) {
+  uint32_t d[kLimbs];
+  uint32_t borrow = 0u;
+#pragma unroll
+  for (int i = 0; i < kLimbs; ++i) {
+    const uint32_t v = s[i] + (1u << kLimbBits) - p2_limb(i) - borrow;
+    d[i] = v & kMask;
+    borrow = 1u - (v >> kLimbBits);
+  }
+  const uint32_t keep = 0u - borrow;  // all ones where s < 2p
+#pragma unroll
+  for (int i = 0; i < kLimbs; ++i) r.l[i] = (s[i] & keep) | (d[i] & ~keep);
+  fp_check(r);
+}
+
+BN_FN BN_NOINLINE void fp_add(Fp& r, const Fp& a, const Fp& b) {
+  uint32_t s[kLimbs];
+  uint32_t c = 0u;
+#pragma unroll
+  for (int i = 0; i < kLimbs; ++i) {
+    const uint32_t v = a.l[i] + b.l[i] + c;
+    s[i] = v & kMask;
+    c = v >> kLimbBits;
+  }
+  fp_fold_2p(r, s);
+}
+
+BN_FN BN_NOINLINE void fp_sub(Fp& r, const Fp& a, const Fp& b) {
+  uint32_t d[kLimbs];
+  uint32_t borrow = 0u;
+#pragma unroll
+  for (int i = 0; i < kLimbs; ++i) {
+    const uint32_t v = a.l[i] + (1u << kLimbBits) - b.l[i] - borrow;
+    d[i] = v & kMask;
+    borrow = 1u - (v >> kLimbBits);
+  }
+  // a < b: add 2p back (the carry out of the top limb cancels the borrow)
+  const uint32_t add = 0u - borrow;
+  uint32_t c = 0u;
+#pragma unroll
+  for (int i = 0; i < kLimbs; ++i) {
+    const uint32_t v = d[i] + (p2_limb(i) & add) + c;
+    r.l[i] = v & kMask;
+    c = v >> kLimbBits;
+  }
+  fp_check(r);
+}
+
+BN_FN BN_INLINE void fp_zero(Fp& r) {
+#pragma unroll
+  for (int i = 0; i < kLimbs; ++i) r.l[i] = 0u;
+}
+
+// Montgomery one, R mod p
+BN_FN BN_INLINE void fp_one(Fp& r) {
+#pragma unroll
+  for (int i = 0; i < kLimbs; ++i) r.l[i] = rmodp_limb(i);
+}
+
+// a in [0, 2p) -> its canonical value in [0, p)
+BN_FN BN_NOINLINE void fp_canon(Fp& r, const Fp& a) {
+  uint32_t d[kLimbs];
+  uint32_t borrow = 0u;
+#pragma unroll
+  for (int i = 0; i < kLimbs; ++i) {
+    const uint32_t v = a.l[i] + (1u << kLimbBits) - p_limb(i) - borrow;
+    d[i] = v & kMask;
+    borrow = 1u - (v >> kLimbBits);
+  }
+  const uint32_t keep = 0u - borrow;  // all ones where a < p
+#pragma unroll
+  for (int i = 0; i < kLimbs; ++i) r.l[i] = (a.l[i] & keep) | (d[i] & ~keep);
+}
+
+// a == 0 mod p, for a in [0, 2p)
+BN_FN BN_INLINE bool fp_is_zero(const Fp& a) {
+  Fp c;
+  fp_canon(c, a);
+  uint32_t any = 0u;
+#pragma unroll
+  for (int i = 0; i < kLimbs; ++i) any |= c.l[i];
+  return any == 0u;
+}
+
+BN_FN BN_INLINE void fp_neg(Fp& r, const Fp& a) {
+  Fp z;
+  fp_zero(z);
+  fp_sub(r, z, a);
+}
+
+// a * k for the small constants of the formulas (k in 3, 4, 8, 9)
+BN_FN BN_NOINLINE void fp_mul_small(Fp& r, const Fp& a, int k) {
+  Fp x2, x4;
+  fp_add(x2, a, a);
+  if (k == 3) { fp_add(r, x2, a); return; }
+  fp_add(x4, x2, x2);
+  if (k == 4) { r = x4; return; }
+  Fp x8;
+  fp_add(x8, x4, x4);
+  if (k == 8) { r = x8; return; }
+  fp_add(r, x8, a);  // k == 9
+}
+
+// ---------------------------------------------------------------------------
+// Fq2 (fields/tower.py:163-217)
+// ---------------------------------------------------------------------------
+
+struct Fq2 {
+  Fp c0, c1;
+};
+
+BN_FN BN_INLINE void fq2_add(Fq2& r, const Fq2& a, const Fq2& b) {
+  fp_add(r.c0, a.c0, b.c0);
+  fp_add(r.c1, a.c1, b.c1);
+}
+
+BN_FN BN_INLINE void fq2_sub(Fq2& r, const Fq2& a, const Fq2& b) {
+  fp_sub(r.c0, a.c0, b.c0);
+  fp_sub(r.c1, a.c1, b.c1);
+}
+
+BN_FN BN_INLINE void fq2_neg(Fq2& r, const Fq2& a) {
+  fp_neg(r.c0, a.c0);
+  fp_neg(r.c1, a.c1);
+}
+
+BN_FN BN_INLINE void fq2_double(Fq2& r, const Fq2& a) { fq2_add(r, a, a); }
+
+BN_FN BN_INLINE void fq2_mul_small(Fq2& r, const Fq2& a, int k) {
+  fp_mul_small(r.c0, a.c0, k);
+  fp_mul_small(r.c1, a.c1, k);
+}
+
+// Karatsuba: 3 leaves
+BN_FN BN_NOINLINE void fq2_mul(Fq2& r, const Fq2& a, const Fq2& b) {
+  Fp sa, sb, t0, t1, t2;
+  fp_add(sa, a.c0, a.c1);
+  fp_add(sb, b.c0, b.c1);
+  fp_mul(t0, a.c0, b.c0);
+  fp_mul(t1, a.c1, b.c1);
+  fp_mul(t2, sa, sb);
+  fp_sub(r.c0, t0, t1);
+  fp_sub(t2, t2, t0);
+  fp_sub(r.c1, t2, t1);
+}
+
+// (a0+a1)(a0-a1) and a0 * 2a1: 2 leaves
+BN_FN BN_NOINLINE void fq2_sq(Fq2& r, const Fq2& a) {
+  Fp s, d, a1x2;
+  fp_add(s, a.c0, a.c1);
+  fp_sub(d, a.c0, a.c1);
+  fp_add(a1x2, a.c1, a.c1);
+  fp_mul(r.c1, a.c0, a1x2);
+  fp_mul(r.c0, s, d);
+}
+
+BN_FN BN_NOINLINE void fq2_mul_fp(Fq2& r, const Fq2& a, const Fp& s) {
+  fp_mul(r.c0, a.c0, s);
+  fp_mul(r.c1, a.c1, s);
+}
+
+// xi = 9 + i: (9 c0 - c1, c0 + 9 c1)
+BN_FN BN_NOINLINE void fq2_mul_xi(Fq2& r, const Fq2& a) {
+  Fp n0, n1;
+  fp_mul_small(n0, a.c0, 9);
+  fp_mul_small(n1, a.c1, 9);
+  fp_add(n1, a.c0, n1);
+  fp_sub(r.c0, n0, a.c1);
+  r.c1 = n1;
+}
+
+// ---------------------------------------------------------------------------
+// Fq6 (fields/tower.py:247-282)
+// ---------------------------------------------------------------------------
+
+struct Fq6 {
+  Fq2 c0, c1, c2;
+};
+
+BN_FN BN_INLINE void fq6_add(Fq6& r, const Fq6& a, const Fq6& b) {
+  fq2_add(r.c0, a.c0, b.c0);
+  fq2_add(r.c1, a.c1, b.c1);
+  fq2_add(r.c2, a.c2, b.c2);
+}
+
+BN_FN BN_INLINE void fq6_sub(Fq6& r, const Fq6& a, const Fq6& b) {
+  fq2_sub(r.c0, a.c0, b.c0);
+  fq2_sub(r.c1, a.c1, b.c1);
+  fq2_sub(r.c2, a.c2, b.c2);
+}
+
+BN_FN BN_INLINE void fq6_mul_by_v(Fq6& r, const Fq6& a) {
+  Fq2 x;
+  fq2_mul_xi(x, a.c2);
+  r.c2 = a.c1;
+  r.c1 = a.c0;
+  r.c0 = x;
+}
+
+// the host oracle's interpolation identity: 6 Fq2 products
+BN_FN BN_NOINLINE void fq6_mul(Fq6& r, const Fq6& a, const Fq6& b) {
+  Fq2 t0, t1, t2, u0, u1, u2, x, y;
+  fq2_mul(t0, a.c0, b.c0);
+  fq2_mul(t1, a.c1, b.c1);
+  fq2_mul(t2, a.c2, b.c2);
+  fq2_add(x, a.c1, a.c2);
+  fq2_add(y, b.c1, b.c2);
+  fq2_mul(u0, x, y);
+  fq2_add(x, a.c0, a.c1);
+  fq2_add(y, b.c0, b.c1);
+  fq2_mul(u1, x, y);
+  fq2_add(x, a.c0, a.c2);
+  fq2_add(y, b.c0, b.c2);
+  fq2_mul(u2, x, y);
+  // c0 = t0 + xi (u0 - t1 - t2)
+  fq2_sub(x, u0, t1);
+  fq2_sub(x, x, t2);
+  fq2_mul_xi(x, x);
+  fq2_add(r.c0, t0, x);
+  // c1 = (u1 - t0 - t1) + xi t2
+  fq2_sub(x, u1, t0);
+  fq2_sub(x, x, t1);
+  fq2_mul_xi(y, t2);
+  fq2_add(r.c1, x, y);
+  // c2 = (u2 - t0 - t2) + t1
+  fq2_sub(x, u2, t0);
+  fq2_sub(x, x, t2);
+  fq2_add(r.c2, x, t1);
+}
+
+// ---------------------------------------------------------------------------
+// Fq12 (fields/tower.py:316-389)
+// ---------------------------------------------------------------------------
+
+struct Fq12 {
+  Fq6 c0, c1;
+};
+
+// Karatsuba over Fq6: 3 Fq6 products
+BN_FN BN_NOINLINE void fq12_mul(Fq12& r, const Fq12& a, const Fq12& b) {
+  Fq6 t0, t1, sa, sb;
+  fq6_mul(t0, a.c0, b.c0);
+  fq6_mul(t1, a.c1, b.c1);
+  fq6_add(sa, a.c0, a.c1);
+  fq6_add(sb, b.c0, b.c1);
+  fq6_mul(sa, sa, sb);  // t2
+  fq6_sub(sa, sa, t0);
+  fq6_sub(r.c1, sa, t1);
+  fq6_mul_by_v(t1, t1);
+  fq6_add(r.c0, t0, t1);
+}
+
+// complex squaring: t = c0 c1; c0' = (c0+c1)(c0 + v c1) - t - v t; c1' = 2t
+BN_FN BN_NOINLINE void fq12_sq(Fq12& r, const Fq12& a) {
+  Fq6 t, u, x, y;
+  fq6_mul(t, a.c0, a.c1);
+  fq6_add(x, a.c0, a.c1);
+  fq6_mul_by_v(y, a.c1);
+  fq6_add(y, a.c0, y);
+  fq6_mul(u, x, y);
+  fq6_sub(u, u, t);
+  fq6_mul_by_v(x, t);
+  fq6_sub(r.c0, u, x);
+  fq6_add(r.c1, t, t);
+}
+
+// Granger-Scott cyclotomic squaring (valid on the cyclotomic subgroup)
+BN_FN BN_NOINLINE void fq4_sq_parts(Fq2& even, Fq2& odd, const Fq2& x,
+                                    const Fq2& y) {
+  // (x + y W)^2 = (x^2 + xi y^2) + 2xy W, from tmp = xy, s = (x+y)(x + xi y)
+  Fq2 tmp, s, u, v;
+  fq2_mul(tmp, x, y);
+  fq2_add(u, x, y);
+  fq2_mul_xi(v, y);
+  fq2_add(v, x, v);
+  fq2_mul(s, u, v);
+  fq2_sub(s, s, tmp);
+  fq2_mul_xi(u, tmp);
+  fq2_sub(even, s, u);
+  fq2_double(odd, tmp);
+}
+
+BN_FN BN_INLINE void three_minus_two(Fq2& r, const Fq2& t, const Fq2& x) {
+  Fq2 d;
+  fq2_sub(d, t, x);
+  fq2_double(d, d);
+  fq2_add(r, d, t);
+}
+
+BN_FN BN_INLINE void three_plus_two(Fq2& r, const Fq2& t, const Fq2& x) {
+  Fq2 d;
+  fq2_add(d, t, x);
+  fq2_double(d, d);
+  fq2_add(r, d, t);
+}
+
+BN_FN BN_NOINLINE void fq12_cyc_sq(Fq12& r, const Fq12& a) {
+  // r0, r4, r3 = a.c0; r2, r1, r5 = a.c1; pairs (r0,r1), (r2,r3), (r4,r5)
+  Fq2 t0, t1, t2, t3, t4, t5, x;
+  fq4_sq_parts(t0, t1, a.c0.c0, a.c1.c1);
+  fq4_sq_parts(t2, t3, a.c1.c0, a.c0.c2);
+  fq4_sq_parts(t4, t5, a.c0.c1, a.c1.c2);
+  Fq12 o;
+  three_minus_two(o.c0.c0, t0, a.c0.c0);
+  three_minus_two(o.c0.c1, t2, a.c0.c1);
+  three_minus_two(o.c0.c2, t4, a.c0.c2);
+  fq2_mul_xi(x, t5);
+  three_plus_two(o.c1.c0, x, a.c1.c0);
+  three_plus_two(o.c1.c1, t1, a.c1.c1);
+  three_plus_two(o.c1.c2, t3, a.c1.c2);
+  r = o;
+}
+
+// ---------------------------------------------------------------------------
+// sparse line fold and the G2 steps (pairing/miller.py:58-149)
+// ---------------------------------------------------------------------------
+
+// g * (s0 + s1 v): 5 Fq2 products
+BN_FN BN_NOINLINE void fq6_mul_by_01(Fq6& r, const Fq6& g, const Fq2& s0,
+                                     const Fq2& s1) {
+  Fq2 t00, t11, u, g2s0, g2s1, x, y;
+  fq2_mul(t00, g.c0, s0);
+  fq2_mul(t11, g.c1, s1);
+  fq2_add(x, g.c0, g.c1);
+  fq2_add(y, s0, s1);
+  fq2_mul(u, x, y);
+  fq2_mul(g2s0, g.c2, s0);
+  fq2_mul(g2s1, g.c2, s1);
+  fq2_mul_xi(x, g2s1);
+  fq2_add(r.c0, t00, x);
+  fq2_sub(u, u, t00);
+  fq2_sub(r.c1, u, t11);
+  fq2_add(r.c2, g2s0, t11);
+}
+
+BN_FN BN_NOINLINE void fq6_mul_by_0(Fq6& r, const Fq6& g, const Fq2& s0) {
+  fq2_mul(r.c0, g.c0, s0);
+  fq2_mul(r.c1, g.c1, s0);
+  fq2_mul(r.c2, g.c2, s0);
+}
+
+// f * (A + B w + C v w)
+BN_FN BN_NOINLINE void fq12_mul_line(Fq12& r, const Fq12& f, const Fq2& a,
+                                     const Fq2& b, const Fq2& c) {
+  Fq6 t0, t1, s;
+  Fq2 ab;
+  fq6_mul_by_0(t0, f.c0, a);
+  fq6_mul_by_01(t1, f.c1, b, c);
+  fq6_add(s, f.c0, f.c1);
+  fq2_add(ab, a, b);
+  fq6_mul_by_01(s, s, ab, c);  // t2
+  fq6_sub(s, s, t0);
+  fq6_sub(r.c1, s, t1);
+  fq6_mul_by_v(t1, t1);
+  fq6_add(r.c0, t0, t1);
+}
+
+struct ProjG2 {
+  Fq2 x, y, z;
+};
+
+struct Line {
+  Fq2 a, b, c;
+};
+
+// tangent-line doubling, line scaled by 2YZ^2
+BN_FN BN_NOINLINE void dbl_step(ProjG2& out, Line& ln, const ProjG2& t,
+                                const Fp& xp, const Fp& yp) {
+  Fq2 xx, yy, xy, yz, x3, yyz, xyz, xxz, yzz, nine_x3, u, v;
+  fq2_sq(xx, t.x);
+  fq2_sq(yy, t.y);
+  fq2_mul(xy, t.x, t.y);
+  fq2_mul(yz, t.y, t.z);
+  fq2_mul(x3, xx, t.x);
+  fq2_mul(yyz, yy, t.z);
+  fq2_mul(xyz, xy, t.z);
+  fq2_mul(xxz, xx, t.z);
+  fq2_mul(yzz, yz, t.z);
+  // 2T = (2XYZ(9X^3-8Y^2Z) : 9X^3(4Y^2Z-3X^3) - 8(Y^2Z)^2 : 8(YZ)^3)
+  fq2_mul_small(u, x3, 8);
+  fq2_add(nine_x3, u, x3);
+  fq2_mul_small(v, yyz, 8);
+  fq2_sub(u, nine_x3, v);
+  fq2_mul(u, xyz, u);
+  fq2_double(out.x, u);
+  fq2_mul_small(u, yyz, 4);
+  fq2_mul_small(v, x3, 3);
+  fq2_sub(u, u, v);
+  fq2_mul(u, nine_x3, u);
+  fq2_sq(v, yyz);
+  fq2_mul_small(v, v, 8);
+  fq2_sub(out.y, u, v);
+  fq2_sq(u, yz);
+  fq2_mul(u, u, yz);
+  fq2_mul_small(out.z, u, 8);
+  // line: A = -2YZ^2 yP ; B = 3X^2 Z xP ; C = 2Y^2 Z - 3X^3
+  fq2_double(u, yzz);
+  fq2_neg(u, u);
+  fq2_mul_fp(ln.a, u, yp);
+  fq2_mul_small(u, xxz, 3);
+  fq2_mul_fp(ln.b, u, xp);
+  fq2_double(u, yyz);
+  fq2_mul_small(v, x3, 3);
+  fq2_sub(ln.c, u, v);
+}
+
+// chord-line mixed addition T + Q (Q affine), line scaled by lam
+BN_FN BN_NOINLINE void add_step(ProjG2& out, Line& ln, const ProjG2& t,
+                                const Fq2& qx, const Fq2& qy, const Fp& xp,
+                                const Fp& yp) {
+  Fq2 theta, lam, cc, dd, ee, ff, gg, hh, u, v;
+  fq2_mul(u, qy, t.z);
+  fq2_sub(theta, t.y, u);
+  fq2_mul(u, qx, t.z);
+  fq2_sub(lam, t.x, u);
+  fq2_sq(cc, theta);
+  fq2_sq(dd, lam);
+  fq2_mul(ee, lam, dd);
+  fq2_mul(ff, t.z, cc);
+  fq2_mul(gg, t.x, dd);
+  fq2_add(u, ee, ff);
+  fq2_double(v, gg);
+  fq2_sub(hh, u, v);
+  // line first: out may not alias t, but keep the order of the formulas
+  fq2_neg(u, lam);
+  fq2_mul_fp(ln.a, u, yp);
+  fq2_mul_fp(ln.b, theta, xp);
+  fq2_mul(u, lam, qy);
+  fq2_mul(v, theta, qx);
+  fq2_sub(ln.c, u, v);
+  // point
+  fq2_mul(out.x, lam, hh);
+  fq2_sub(u, gg, hh);
+  fq2_mul(u, theta, u);
+  fq2_mul(v, ee, t.y);
+  fq2_sub(out.y, u, v);
+  fq2_mul(out.z, t.z, ee);
+}
+
+// ---------------------------------------------------------------------------
+// G1 in Jacobian coordinates (curve/jacobian.py, Fq coordinates)
+// ---------------------------------------------------------------------------
+
+struct G1 {
+  Fp x, y, z;
+};
+
+// dbl-2009-l; the identity (Z = 0) maps to itself
+BN_FN BN_NOINLINE void g1_double(G1& r, const G1& p) {
+  Fp a, b, c, d, e, f, t, u;
+  fp_mul(a, p.x, p.x);
+  fp_mul(b, p.y, p.y);
+  fp_mul(c, b, b);
+  fp_add(t, p.x, b);
+  fp_mul(t, t, t);
+  fp_add(u, a, c);
+  fp_sub(t, t, u);
+  fp_add(d, t, t);
+  fp_mul_small(e, a, 3);
+  fp_mul(f, e, e);
+  G1 o;
+  fp_add(t, d, d);
+  fp_sub(o.x, f, t);
+  fp_sub(t, d, o.x);
+  fp_mul(t, e, t);
+  fp_mul_small(u, c, 8);
+  fp_sub(o.y, t, u);
+  fp_mul(t, p.y, p.z);
+  fp_add(o.z, t, t);
+  r = o;
+}
+
+// complete addition: add-2007-bl, then the plain version's masked selects
+// in its order (doubling, P + (-P), either operand the identity); the
+// doubling runs only on lanes that select it
+BN_FN BN_NOINLINE void g1_add(G1& r, const G1& p1, const G1& p2) {
+  Fp z1z1, z2z2, u1, u2, s1, s2, h, rr, i, j, v, t, u;
+  fp_mul(z1z1, p1.z, p1.z);
+  fp_mul(z2z2, p2.z, p2.z);
+  fp_mul(u1, p1.x, z2z2);
+  fp_mul(u2, p2.x, z1z1);
+  fp_mul(t, p1.y, p2.z);
+  fp_mul(s1, t, z2z2);
+  fp_mul(t, p2.y, p1.z);
+  fp_mul(s2, t, z1z1);
+  fp_sub(h, u2, u1);
+  fp_sub(t, s2, s1);
+  fp_add(rr, t, t);
+  fp_add(t, h, h);
+  fp_mul(i, t, t);
+  fp_mul(j, h, i);
+  fp_mul(v, u1, i);
+  G1 o;
+  fp_mul(t, rr, rr);
+  fp_sub(t, t, j);
+  fp_add(u, v, v);
+  fp_sub(o.x, t, u);
+  fp_sub(t, v, o.x);
+  fp_mul(t, rr, t);
+  fp_mul(u, s1, j);
+  fp_add(u, u, u);
+  fp_sub(o.y, t, u);
+  fp_mul(t, p1.z, p2.z);
+  fp_mul(t, t, h);
+  fp_add(o.z, t, t);
+  const bool h_zero = fp_is_zero(h), r_zero = fp_is_zero(rr);
+  if (h_zero && r_zero) g1_double(o, p1);
+  if (h_zero && !r_zero) {
+    fp_one(o.x);
+    fp_one(o.y);
+    fp_zero(o.z);
+  }
+  if (fp_is_zero(p1.z)) o = p2;
+  if (fp_is_zero(p2.z)) o = p1;
+  r = o;
+}
+
+// ---------------------------------------------------------------------------
+// the fused bodies (pairing/miller.py, pairing/final_exp.py, fields/limbs.py,
+// curve/glv.py); the Fq12 ops above are bodies of their own
+// ---------------------------------------------------------------------------
+
+// the window of the fused pow chain (fields/limbs.py:_POW_WINDOW)
+constexpr int kPowWindow = 3;
+
+// el_pow_step_sq: acc^(2^3)
+BN_FN BN_INLINE void el_pow_step_sq(Fp& out, const Fp& acc) {
+  Fp x = acc;
+  for (int k = 0; k < kPowWindow; ++k) fp_mul(x, x, x);
+  out = x;
+}
+
+// el_pow_step_mul: acc^(2^3) * m
+BN_FN BN_INLINE void el_pow_step_mul(Fp& out, const Fp& acc, const Fp& m) {
+  Fp x;
+  el_pow_step_sq(x, acc);
+  fp_mul(out, x, m);
+}
+
+// glv_dbl_add: 2 acc + sel
+BN_FN BN_INLINE void glv_dbl_add(G1& out, const G1& acc, const G1& sel) {
+  G1 d;
+  g1_double(d, acc);
+  g1_add(out, d, sel);
+}
+
+// miller_dbl_body: f^2 * tangent line, T <- 2T
+BN_FN BN_INLINE void miller_dbl_body(Fq12& f_out, ProjG2& t_out,
+                                     const Fq12& f, const ProjG2& t,
+                                     const Fp& xp, const Fp& yp) {
+  Fq12 sq;
+  Line ln;
+  fq12_sq(sq, f);
+  dbl_step(t_out, ln, t, xp, yp);
+  fq12_mul_line(f_out, sq, ln.a, ln.b, ln.c);
+}
+
+// miller_add_body: f * chord line, T <- T + Q
+BN_FN BN_INLINE void miller_add_body(Fq12& f_out, ProjG2& t_out,
+                                     const Fq12& f, const ProjG2& t,
+                                     const Fq2& qx, const Fq2& qy,
+                                     const Fp& xp, const Fp& yp) {
+  Line ln;
+  add_step(t_out, ln, t, qx, qy, xp, yp);
+  fq12_mul_line(f_out, f, ln.a, ln.b, ln.c);
+}
+
+// expu_sq2: acc^4 by two cyclotomic squarings
+BN_FN BN_INLINE void expu_sq2(Fq12& out, const Fq12& acc) {
+  Fq12 x;
+  fq12_cyc_sq(x, acc);
+  fq12_cyc_sq(out, x);
+}
+
+// expu_step: acc^4 * m
+BN_FN BN_INLINE void expu_step(Fq12& out, const Fq12& acc, const Fq12& m) {
+  Fq12 x;
+  expu_sq2(x, acc);
+  fq12_mul(out, x, m);
+}
+
+}  // namespace bn254

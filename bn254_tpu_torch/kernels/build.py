@@ -1,11 +1,13 @@
 """Build and load the package's CUDA kernels.
 
-Each kernel is one `<name>.cu` file beside this module with a plain C
-interface. At first use `nvcc` compiles it for Hopper (`sm_90a`) into a
-shared library under `_build/`, named by a hash of the source and the
-flags, so an edited source is rebuilt and an unchanged one is reused; the
-library is loaded with `ctypes`. Nothing is built when the package is
-imported, so `import bn254_tpu_torch` works on a machine without CUDA.
+Each kernel library is one `<name>.cu` file beside this module with a
+plain C interface; it may include headers beside it (`bn254_tower.cuh`).
+At first use (or all at once, through `build`) `nvcc` compiles it for
+Hopper (`sm_90a`) into a shared library under `_build/`, named by a hash
+of the source, the headers it includes and the flags, so an edited source
+or header is rebuilt and an unchanged one is reused; the library is loaded
+with `ctypes`. Nothing is built when the package is imported, so
+`import bn254_tpu_torch` works on a machine without CUDA.
 
 A failed build raises `KernelBuildError`: there is no fallback to the
 plain torch version for CUDA tensors.
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -53,38 +56,75 @@ def nvcc() -> str:
     raise KernelBuildError("nvcc not found (set CUDA_HOME)")
 
 
-def _compile(src: Path, out: Path) -> str:
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def local_headers(src: Path) -> list[Path]:
+    """The headers beside this module that `src` includes, directly or
+    through another of them, in a fixed order (they go into the digest)."""
+    seen: list[Path] = []
+    todo = [src]
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop().read_text()):
+            h = SRC_DIR / inc
+            if h.is_file() and h not in seen:
+                seen.append(h)
+                todo.append(h)
+    return seen
+
+
+def _output(name: str) -> Path:
+    """The library file of `name`, named by a digest of its source, the
+    headers it includes and the flags."""
+    src = SRC_DIR / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in local_headers(src):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names) -> None:
+    """Compile each library of `names` that is not built yet: one nvcc per
+    source, all started together. Raises KernelBuildError naming every
+    source that failed."""
+    todo = [(n, _output(n)) for n in dict.fromkeys(names)]
+    todo = [(n, out) for n, out in todo if not out.exists()]
+    if not todo:
+        return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+    compiler = nvcc()
+    jobs, errors = [], []
     try:
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:
-            raise KernelBuildError(
-                f"nvcc failed on {src.name} (rc={r.returncode}):\n"
-                f"{r.stdout}\n{r.stderr}"
-            )
-        os.replace(tmp, out)  # atomic: concurrent builders agree
-        return r.stdout + r.stderr
+        for name, out in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            jobs.append((name, out, tmp, subprocess.Popen(
+                [compiler, *NVCC_FLAGS, "-o", tmp, str(SRC_DIR / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        for name, out, tmp, proc in jobs:
+            stdout, stderr = proc.communicate()
+            if proc.returncode == 0:
+                os.replace(tmp, out)  # atomic: concurrent builders agree
+                build_log[name] = stdout + stderr
+            else:
+                errors.append(f"nvcc failed on {name}.cu "
+                              f"(rc={proc.returncode}):\n{stdout}\n{stderr}")
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        for _, _, tmp, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    if errors:
+        raise KernelBuildError("\n".join(errors))
 
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded shared library of kernel `name`, built on first use."""
     with _lock:
         lib = _loaded.get(name)
-        if lib is not None:
-            return lib
-        src = SRC_DIR / f"{name}.cu"
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        out = BUILD_DIR / f"{name}-{digest}.so"
-        if not out.exists():
-            build_log[name] = _compile(src, out)
-        lib = ctypes.CDLL(str(out))
-        _loaded[name] = lib
+        if lib is None:
+            build([name])
+            lib = _loaded[name] = ctypes.CDLL(str(_output(name)))
         return lib

@@ -13,10 +13,12 @@
 //
 // Design: one thread per batch element. The (18, N) limb-major layout
 // makes each limb load coalesced across a warp (limb i of neighbouring
-// elements lies at neighbouring addresses). The 18 + 18 + 19 uint32 values
-// live in registers; every loop is fully unrolled, so the per-step shift
-// of the accumulator is register renaming. p's limbs sit in constant
-// memory and are read at the same index by the whole warp (broadcast).
+// elements lies at neighbouring addresses). The CIOS itself is
+// bn254_tower.cuh's `cios`, the leaf the fused kernels share, inlined here:
+// the 18 + 18 + 19 uint32 values live in registers; every loop is fully
+// unrolled, so the per-step shift of the accumulator is register renaming.
+// p's limbs sit in constant memory and are read at the same index by the
+// whole warp (broadcast).
 // Tensors are int64 at the interface (torch on the CPU has no uint32
 // arithmetic); the arithmetic inside is uint32, as on the TPU.
 //
@@ -27,64 +29,26 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bn254_tower.cuh"
+
 namespace {
-
-constexpr int kLimbs = 18;
-constexpr int kLimbBits = 15;
-constexpr uint32_t kMask = (1u << kLimbBits) - 1u;
-// -p^{-1} mod 2^15
-constexpr uint32_t kPinv0 = 25481u;
-
-__constant__ uint32_t kP[kLimbs] = {
-    0x7D47, 0x30F9, 0x305B, 0x6104, 0x28D3, 0x0E39, 0x245A, 0x40B5, 0x5D97,
-    0x02B0, 0x5A06, 0x022D, 0x1B85, 0x3405, 0x384C, 0x2739, 0x3064, 0x0000,
-};
 
 __global__ void __launch_bounds__(256)
 montmul_kernel(const int64_t* __restrict__ a, const int64_t* __restrict__ b,
                int64_t* __restrict__ out, int64_t n) {
+  using bn254::kLimbs;
   const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= n) return;
 
-  uint32_t av[kLimbs], bv[kLimbs], t[kLimbs + 1];
+  uint32_t av[kLimbs], bv[kLimbs], r[kLimbs];
 #pragma unroll
   for (int i = 0; i < kLimbs; ++i) {
     av[i] = static_cast<uint32_t>(a[i * n + e]);
     bv[i] = static_cast<uint32_t>(b[i * n + e]);
   }
+  bn254::cios(r, av, bv);
 #pragma unroll
-  for (int j = 0; j <= kLimbs; ++j) t[j] = 0u;
-
-#pragma unroll
-  for (int i = 0; i < kLimbs; ++i) {
-    const uint32_t ai = av[i];
-#pragma unroll
-    for (int j = 0; j < kLimbs; ++j) {
-      const uint32_t prod = ai * bv[j];  // exact: limbs < 2^16
-      t[j] += prod & kMask;
-      t[j + 1] += prod >> kLimbBits;
-    }
-    const uint32_t m = (t[0] * kPinv0) & kMask;
-#pragma unroll
-    for (int j = 0; j < kLimbs; ++j) {
-      const uint32_t prod = m * kP[j];
-      t[j] += prod & kMask;
-      t[j + 1] += prod >> kLimbBits;
-    }
-    const uint32_t carry0 = t[0] >> kLimbBits;  // t[0] & kMask == 0 here
-#pragma unroll
-    for (int j = 0; j < kLimbs; ++j) t[j] = t[j + 1];
-    t[kLimbs] = 0u;
-    t[0] += carry0;
-  }
-
-  uint32_t c = 0u;
-#pragma unroll
-  for (int i = 0; i < kLimbs; ++i) {
-    const uint32_t v = t[i] + c;
-    out[i * n + e] = static_cast<int64_t>(v & kMask);
-    c = v >> kLimbBits;
-  }
+  for (int i = 0; i < kLimbs; ++i) out[i * n + e] = static_cast<int64_t>(r[i]);
 }
 
 }  // namespace

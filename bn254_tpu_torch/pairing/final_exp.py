@@ -3,10 +3,12 @@
 Counterpart of `bn254_tpu/pairing/final_exp.py` in the form its batch
 verifiers run: the staged pipeline `final_exp_staged` (easy part, three
 u-exponentiations, hard-part combination, each stage retagging its own
-output) with the scan form of `exp_u`. The JAX package's replicated-block
-trick for scalar inputs (`final_exp_wide`) works around slow batch-1
-programs on the TPU and is not carried over: a scalar final
-exponentiation here runs on (18,) tensors.
+output). `exp_u` has the JAX package's two forms: unrolled, one fused CUDA
+kernel per window (kernels/fused.py; the form CUDA tensors take), and the
+scan form (CPU tensors). The JAX package's replicated-block trick for
+scalar inputs (`final_exp_wide`) works around slow batch-1 programs on the
+TPU and is not carried over: a scalar final exponentiation here runs on
+(18,) tensors.
 
 Easy part (p^6-1)(p^2+1), then the Devegili-style hard-part chain.
 """
@@ -16,6 +18,7 @@ from __future__ import annotations
 from ..constants import U
 from ..fields import limbs as L
 from ..fields import tower as T
+from ..kernels import fused as FK
 
 Fq12 = T.Fq12
 
@@ -26,20 +29,51 @@ _U_WINDOWS = [
 ]
 
 
-def exp_u(f: Fq12, window_digits=None) -> Fq12:
-    """f^u for a CYCLOTOMIC f (all final-exp call sites qualify).
+def _expu_step_impl(acc: Fq12, m: Fq12) -> Fq12:
+    """(acc^4) * m — one nonzero window (kernel "expu_step")."""
+    acc = T.fq12_cyc_sq(acc)
+    acc = T.fq12_cyc_sq(T.fq12_retag(acc))
+    acc = T.fq12_mul(T.fq12_retag(acc), m)
+    return T.fq12_retag(acc)
 
-    2-bit windowed square-and-multiply over the fixed bits of u: per
-    window two Granger-Scott squarings and one multiply by the table
-    entry {1, f, f^2, f^3}[digit]. A zero window multiplies by `one`, as
-    the JAX scan does, so the limbs match it one for one.
 
-    window_digits: schedule override (tests use a truncated prefix).
-    """
-    e = f.c0.c0.c0
+def _expu_sq2_impl(acc: Fq12) -> Fq12:
+    """acc^4 — one zero window (kernel "expu_sq2")."""
+    acc = T.fq12_cyc_sq(acc)
+    acc = T.fq12_cyc_sq(T.fq12_retag(acc))
+    return T.fq12_retag(acc)
+
+
+def _exp_u_table(f: Fq12):
     f = T.fq12_retag(f)
     f2 = T.fq12_retag(T.fq12_cyc_sq(f))
     f3 = T.fq12_retag(T.fq12_mul(f2, f))
+    return f, f2, f3
+
+
+def _exp_u_unrolled(f: Fq12, windows=None) -> Fq12:
+    """exp_u unrolled over the static windows of u: one `expu_step` launch
+    per nonzero window, which folds its table entry in the same launch, and
+    one `expu_sq2` per zero window, which skips the multiply (31 launches
+    on the full schedule). windows: schedule override for tests."""
+    f, f2, f3 = _exp_u_table(f)
+    table = {1: f, 2: f2, 3: f3}
+    acc = f  # the MSB of u is consumed by the init (as in the scan form)
+    for w in (_U_WINDOWS if windows is None else windows):
+        if w:
+            acc = FK.fused_op(_expu_step_impl, "expu_step", acc, table[w])
+        else:
+            acc = FK.fused_op(_expu_sq2_impl, "expu_sq2", acc)
+    return acc
+
+
+def _exp_u_scan(f: Fq12, window_digits=None) -> Fq12:
+    """The leaf-level loop, the counterpart of JAX's `_exp_u_scan`: per
+    window two Granger-Scott squarings and one multiply by the table entry
+    {1, f, f^2, f^3}[digit]. A zero window multiplies by `one`, as the JAX
+    scan does, so the limbs match it one for one."""
+    e = f.c0.c0.c0
+    f, f2, f3 = _exp_u_table(f)
     one = T.fq12_retag(T.fq12_one(e.batch_shape, e.device))
     table = (one, f, f2, f3)
 
@@ -49,6 +83,18 @@ def exp_u(f: Fq12, window_digits=None) -> Fq12:
         acc = T.fq12_cyc_sq(T.fq12_retag(acc))
         acc = T.fq12_retag(T.fq12_mul(T.fq12_retag(acc), table[w]))
     return acc
+
+
+def exp_u(f: Fq12, window_digits=None) -> Fq12:
+    """f^u for a CYCLOTOMIC f (all final-exp call sites qualify): 2-bit
+    windowed square-and-multiply over the fixed bits of u. Unrolled into
+    fused kernels on CUDA tensors, the scan form on CPU tensors.
+
+    window_digits: schedule override (tests use a truncated prefix).
+    """
+    if T._use_kernels(*L.tree_leaves(f)):
+        return _exp_u_unrolled(f, window_digits)
+    return _exp_u_scan(f, window_digits)
 
 
 def easy_part(f: Fq12) -> Fq12:

@@ -2,8 +2,10 @@
 
 Counterpart of `bn254_tpu/pairing/miller.py`: its step bodies
 (`_dbl_step_impl`, `_add_step_impl`, `_fq12_mul_line_impl`), its bound
-pins and its scan form `_miller_loop_scan`, here a Python loop over the
-static NAF schedule of 6u + 2.
+pins, its unrolled form `_miller_loop_unrolled` (one fused CUDA kernel per
+digit, kernels/fused.py; the form CUDA tensors take) and its scan form
+`_miller_loop_scan`, here a Python loop over the static NAF schedule of
+6u + 2 (the form CPU tensors take).
 
 * G2 points stay in homogeneous projective coordinates on the twist; line
   evaluations are division-free and scaled by subfield factors (killed by
@@ -24,10 +26,13 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import torch
+
 from ..constants import ATE_LOOP_COUNT, P, XI
 from ..fields import limbs as L
 from ..fields import tower as T
 from ..host import field as HF
+from ..kernels import fused as FK
 
 Fq2 = T.Fq2
 Fq6 = T.Fq6
@@ -217,6 +222,62 @@ assert _ATE_NAF[0] == 1
 _ATE_NAF = _ATE_NAF[1:]
 
 
+# ---------------------------------------------------------------------------
+# fused step bodies: the whole per-digit Miller work as ONE kernel launch
+# ---------------------------------------------------------------------------
+
+
+def _dbl_body_impl(f: Fq12, t: ProjG2, xp: L.El, yp: L.El):
+    """sq + tangent double + sparse line fold (kernel "miller_dbl_body")."""
+    f = T.fq12_sq(f)
+    t2, (a, b, c) = dbl_step(t, xp, yp)
+    f = fq12_mul_line(f, a, b, c)
+    return _pin_fq12(f), _pin_proj(t2)
+
+
+def _add_body_impl(f: Fq12, t: ProjG2, qx: Fq2, qy: Fq2, xp: L.El,
+                   yp: L.El):
+    """chord add + sparse line fold (kernel "miller_add_body")."""
+    t2, (a, b, c) = add_step(t, qx, qy, xp, yp)
+    f = fq12_mul_line(f, a, b, c)
+    return _pin_fq12(f), _pin_proj(t2)
+
+
+def _miller_loop_unrolled(xp, yp, qx: Fq2, qy: Fq2, inf_mask=None,
+                          naf=None) -> Fq12:
+    """The Miller loop unrolled over the STATIC NAF schedule: one
+    `miller_dbl_body` launch per digit, one `miller_add_body` launch per
+    nonzero digit and per Frobenius step (65 + 23 on the full schedule).
+
+    Every operand is pinned to (STD_BOUND, 2^16) once before the loop and
+    every body pins its outputs, so each launch sees the same bounds.
+    naf: digit schedule override (tests use a truncated prefix).
+    """
+    batch = torch.broadcast_shapes(xp.batch_shape, qx.c0.batch_shape)
+    dev = xp.device
+    f = _pin_fq12(T.fq12_one(batch, dev))
+    t = _pin_proj(ProjG2(qx, qy, T.fq2_one(batch, dev)))
+    pqx, pqy = _pin_fq2(qx), _pin_fq2(qy)
+    nqy = _pin_fq2(T.fq2_neg(qy))
+    xpp, ypp = _pin_el(xp), _pin_el(yp)
+
+    for d in (_ATE_NAF if naf is None else naf):
+        f, t = FK.fused_op(_dbl_body_impl, "miller_dbl_body", f, t, xpp, ypp)
+        if d != 0:
+            f, t = FK.fused_op(_add_body_impl, "miller_add_body", f, t, pqx,
+                               pqy if d > 0 else nqy, xpp, ypp)
+
+    q1x, q1y = _twist_frob(pqx, pqy, 1)
+    q2x, q2y = _twist_frob(pqx, pqy, 2)
+    for ax, ay in ((q1x, q1y), (q2x, T.fq2_neg(q2y))):
+        f, t = FK.fused_op(_add_body_impl, "miller_add_body", f, t,
+                           _pin_fq2(ax), _pin_fq2(ay), xpp, ypp)
+
+    if inf_mask is not None:
+        f = T.fq12_select(inf_mask, T.fq12_one(batch, dev), f)
+    return f
+
+
 def miller_loop(xp, yp, qx: Fq2, qy: Fq2, inf_mask=None, naf=None) -> Fq12:
     """f_{6u+2, Q}(P) with Frobenius addition steps.
 
@@ -226,9 +287,22 @@ def miller_loop(xp, yp, qx: Fq2, qy: Fq2, inf_mask=None, naf=None) -> Fq12:
     (matching `pairing(identity, ·) == 1`).
     naf: digit schedule override (tests use a truncated prefix).
 
+    On CUDA tensors the loop is `_miller_loop_unrolled` (one kernel per
+    digit); on CPU tensors `_miller_loop_scan`, as the JAX package
+    dispatches between its two forms.
+    """
+    if T._use_kernels(xp, yp, qx.c0, qy.c0):
+        return _miller_loop_unrolled(xp, yp, qx, qy, inf_mask, naf)
+    return _miller_loop_scan(xp, yp, qx, qy, inf_mask, naf)
+
+
+def _miller_loop_scan(xp, yp, qx: Fq2, qy: Fq2, inf_mask=None,
+                      naf=None) -> Fq12:
+    """The leaf-level loop, the counterpart of JAX's `_miller_loop_scan`.
+
     Every digit doubles; nonzero digits add Q (digit 1) or -Q (digit -1).
     Carriers are pinned on both branches, exactly as the JAX scan does, so
-    the limbs match its `_miller_loop_scan` one for one.
+    the limbs match it one for one.
     """
     batch, dev = xp.batch_shape, xp.device
     f = _pin_fq12(T.fq12_one(batch, dev))

@@ -6,31 +6,54 @@
 Phases, each of which exits non-zero on failure:
 
 1. The card: name and power limit (nvidia-smi), torch and CUDA versions.
-2. The kernel build: nvcc compiles bn254_tpu_torch/kernels/montmul.cu.
-3. Kernel vs plain: the CUDA montmul against its plain torch version,
-   bit for bit, on random limbs at the main path's widest shape
-   (54 x batch lanes), a lane count that is no multiple of the block,
-   lazy boundary limbs, a broadcast operand, and an 8-lane sample against
-   the Python-int Montgomery oracle.
+2. The kernel build: nvcc compiles bn254_tpu_torch/kernels/montmul.cu and
+   fused.cu (with their shared header bn254_tower.cuh), one compiler per
+   source, started together; build seconds and ptxas registers, stack and
+   spills per kernel.
+3. Kernel vs plain.
+   - montmul against its plain torch version, bit for bit, on random limbs
+     at the main path's widest shape (54 x batch lanes), a lane count that is
+     no multiple of the block, lazy boundary limbs, a broadcast operand, and
+     an 8-lane sample against the Python-int Montgomery oracle.
+   - The ten fused kernels of fused.cu against their plain bodies, run on
+     the card with the plain leaf and no kernel inside, by canonical value,
+     every output within the bounds the plain body declares, at the widths
+     the main path gives each (`WIDTHS`) and at 1 lane: random inputs at
+     the pinned bounds (2^262, 2^16) with boundary lanes (low limbs
+     2^16 - 1, the value 2^262 - 1, zero), a lane count that is no multiple
+     of the 64-thread block, and an unbatched (18,) operand.
 4. The main path through the user entry points: `api.batch_sign` makes
    the signatures of `batch` distinct messages under `keys` keys (8 held
    against the host oracle), then `api.batch_verify(mode="adaptive")`
    must accept all; `mode="fused"` must reject the batch with one
    signature swapped; `mode="adaptive"` on a tampered 64-tuple batch must
-   flag exactly the tampered index. The kernel's launch count is reset
-   just before the adaptive run and read just after.
-5. Times on a warm repeat (CUDA events): per stage, end to end, the
-   montmul launches per verify, and the device busy share of one Miller
-   digit (profiler kernel time over its wall time).
+   flag exactly the tampered index. Every kernel's launch count is reset
+   just before the adaptive run and read just after: exactly 65
+   miller_dbl_body, 23 miller_add_body, 69 expu_step and 24 expu_sq2
+   launches, and some launches of montmul, fq12_mul, fq12_cyc_sq,
+   el_pow_step_mul, el_pow_step_sq and glv_dbl_add (fq12_sq runs only
+   inside the Miller bodies on this path).
+5. Times on a warm repeat (CUDA events): per stage (the weights stage also
+   split into the GLV ladders and the signature tree-sum, the final
+   exponentiation into its easy part, one exp_u, the hard part and is_one),
+   end to end, the launch
+   counts of a warm run (the same exact counts), per kernel ms at its
+   main-path width beside its bound and its plain version, and the device
+   busy share (profiler kernel time over wall time) of one miller_dbl_body
+   launch and of one whole exp_u.
 
-It prints a kernels JSON line, and as its last line
+It prints a kernels JSON line with every kernel the main path launches
+(fq12_sq, checked and timed all the same, is printed on a line of its own),
+and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -41,6 +64,15 @@ import time
 # integer multiply-add rate is 67e12 / 2 (lanes) / 2 (FMA counted once).
 HBM_BYTES_PER_S = 3.35e12
 INT32_MAD_PER_S = 67e12 / 4
+LEAF_MADS = 2 * 18 * 18  # 32-bit multiply-adds of one CIOS leaf multiply
+
+# the main path's launches of each fused kernel per batch: 65 NAF digits;
+# 21 nonzero digits + 2 Frobenius steps; 3 exp_u x 23 nonzero / 8 zero
+# windows. The other kernels' counts depend on the batch; they must be > 0,
+# except fq12_sq's, which the path runs only inside the Miller bodies.
+MAIN_PATH_LAUNCHES = {"miller_dbl_body": 65, "miller_add_body": 23,
+                      "expu_step": 69, "expu_sq2": 24}
+OFF_PATH = {"fq12_sq"}
 
 
 def fail(msg: str) -> None:
@@ -71,6 +103,34 @@ def events_ms(torch, fn, reps: int = 1):
     return out, start.elapsed_time(end) / reps
 
 
+def ptxas_summary(log: str) -> list[str]:
+    """Registers, stack frame and spills of each kernel entry in a
+    `-Xptxas=-v` report."""
+    out, entry = [], None
+    props = {}
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and entry:
+            props[entry] = m.groups()
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry and "kernel" in entry:
+            stack, st, ld = props.get(entry, ("?", "?", "?"))
+            short = re.sub(r"^_Z\w*?\d+(\w+_kernel)\w*$", r"\1", entry)
+            out.append(f"{short}: {m.group(1)} registers, {stack} B stack "
+                       f"frame, {st} B spill stores, {ld} B spill loads")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=8192)
@@ -87,6 +147,7 @@ def main() -> int:
         return 2
     try:
         from bn254_tpu_torch import api
+        from bn254_tpu_torch import config as C
         from bn254_tpu_torch.constants import MONT_R, NLIMBS, P, R
         from bn254_tpu_torch.dist import batch_verify as BV
         from bn254_tpu_torch.fields import limbs as L
@@ -95,6 +156,7 @@ def main() -> int:
         from bn254_tpu_torch.hash.tai_batch import hash_to_g1_device
         from bn254_tpu_torch.host import curve as HC
         from bn254_tpu_torch.kernels import build
+        from bn254_tpu_torch.kernels import fused as FK
         from bn254_tpu_torch.kernels import montmul as MK
         from bn254_tpu_torch.pairing import final_exp as FE
         from bn254_tpu_torch.pairing import miller as M
@@ -114,20 +176,22 @@ def main() -> int:
     print(f"card: {card} | torch {torch.__version__} | CUDA {torch.version.cuda}"
           f" | python {sys.version.split()[0]}")
 
-    # -- 2. the kernel build ---------------------------------------------------
+    # -- 2. the kernel build (one nvcc per source, started together) ------------
     t0 = time.perf_counter()
     try:
-        build.library("montmul")
+        build.build(["montmul", "fused"])
+        for lib in ("montmul", "fused"):
+            build.library(lib)
     except build.KernelBuildError as e:
         fail(str(e))
-    build_s = time.perf_counter() - t0
     nvcc = build.nvcc()
     ver = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()
-    print(f"build: {nvcc} ({ver[-1] if ver else '?'}) montmul.cu in {build_s:.2f} s")
-    for line in build.build_log.get("montmul", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"build: ptxas: {line.strip()}")
+    print(f"build: {nvcc} ({ver[-1] if ver else '?'}) montmul.cu and fused.cu "
+          f"in {time.perf_counter() - t0:.2f} s wall")
+    for lib in ("montmul", "fused"):
+        for line in ptxas_summary(build.build_log.get(lib, "")):
+            print(f"build: ptxas: {line}")
 
     # -- 3. kernel vs plain ----------------------------------------------------
     gen = torch.Generator(device="cpu").manual_seed(args.seed)
@@ -138,18 +202,17 @@ def main() -> int:
         x[NLIMBS - 1] = torch.randint(0, 1 << top_bits, (n,), generator=gen)
         return x.to(dev)
 
-    max_err = 0
+    max_err = {k: 0 for k in ["montmul", *FK.KERNELS]}
 
     def check(tag, a, b):
-        nonlocal max_err
         got = MK.montmul_cuda(a, b)
         want = MK.montmul_plain(a, b)
         torch.cuda.synchronize()
         err = int((got - want).abs().max().item()) if got.numel() else 0
-        max_err = max(max_err, err)
+        max_err["montmul"] = max(max_err["montmul"], err)
         if not torch.equal(got, want):
             fail(f"montmul kernel differs from plain on {tag}: max |err| {err}")
-        print(f"kernel vs plain: {tag}: {tuple(got.shape)} bit-exact")
+        print(f"kernel vs plain: montmul: {tag}: {tuple(got.shape)} bit-exact")
         return got
 
     wide = 54 * B
@@ -168,10 +231,115 @@ def main() -> int:
     for x, y, g in zip(L.to_ints(sa), L.to_ints(sb), L.to_ints(got)):
         if int(g) % P != int(x) * int(y) * rinv % P or int(g) >> 270:
             fail("montmul kernel disagrees with the Python-int oracle")
-    print("kernel vs oracle: 8 lanes agree by value")
+    print("kernel vs oracle: montmul: 8 lanes agree by value")
+
+    @contextlib.contextmanager
+    def plain_leaf(count=None):
+        """Plain bodies run with the plain torch leaf and no kernel inside
+        (kernel mode); with `count`, the leaf multiplies per lane are
+        tallied in it."""
+        saved = MK.montmul
+
+        def leaf(a, b):
+            if count is not None:
+                count[0] += torch.broadcast_tensors(a, b)[0].numel() // NLIMBS
+            return MK.montmul_plain(a, b)
+
+        MK.montmul = leaf
+        try:
+            with FK.kernel_mode():
+                yield
+        finally:
+            MK.montmul = saved
+
+    # each kernel's widest main-path width: the B+1 Miller rows; the first
+    # level of the Fq12 product tree; the one-lane final exponentiation; the
+    # hash's B x k square roots; the (H, sig) pair axis of the GLV ladder
+    K = C.DEFAULT.k_candidates
+    WIDTHS = {"miller_dbl_body": B + 1, "miller_add_body": B + 1,
+              "expu_step": 1, "expu_sq2": 1, "fq12_mul": (B + 1) // 2,
+              "fq12_sq": B + 1, "fq12_cyc_sq": 1, "el_pow_step_mul": B * K,
+              "el_pow_step_sq": B * K, "glv_dbl_add": 2 * B}
+    rng = np.random.default_rng(args.seed)
+    STD, LMAX = L.STD_BOUND, 1 << 16
+
+    def body_inputs(key, n, const_last=0):
+        """Random inputs at the pinned bounds on n lanes, boundary lanes
+        first; the last `const_last` arguments unbatched (18,)."""
+        n_in = FK.arity(key)[0]
+        x = rng.integers(0, 1 << 16, size=(n_in, NLIMBS, n), dtype=np.int64)
+        x[:, NLIMBS - 1] = rng.integers(0, 126, size=(n_in, n))
+        if n >= 3:
+            x[:, :, 0] = LMAX - 1
+            x[:, NLIMBS - 1, 0] = 125  # value < 2^262, low limbs at 2^16-1
+            x[:, :, 1] = (1 << 15) - 1
+            x[:, NLIMBS - 1, 1] = (STD - 1) >> (15 * (NLIMBS - 1))  # 2^262-1
+            x[:, :, 2] = 0
+        args_ = FK.args_from_leaves(
+            key, [CV.from_numpy(x[i], STD, LMAX, dev) for i in range(n_in)])
+        k = len(args_) - const_last
+        return args_[:k] + tuple(
+            L.tree_map(lambda e: L.El(e.arr[:, 0], e.vmax, e.lmax), a)
+            for a in args_[k:])
+
+    def compare(key, tag, args_):
+        body = FK.signature(key)[0]
+        got = FK.fused_op(body, key, *args_)
+        with plain_leaf():
+            want = body(*args_)
+        torch.cuda.synchronize()
+        gl, wl = L.tree_leaves(got), L.tree_leaves(want)
+        err = 0
+        for g, w in zip(gl, wl):
+            if (g.vmax, g.lmax) != (w.vmax, w.lmax):
+                fail(f"{key}: learned bounds differ from the plain body's")
+            if int(g.arr.min()) < 0 or int(g.arr.max()) >= g.lmax:
+                fail(f"{key} on {tag}: a limb is outside [0, {g.lmax})")
+            if not bool(L.lt_const(g, g.vmax).all()):
+                fail(f"{key} on {tag}: a value is not below its declared bound")
+            cg, cw = L.canon(g).arr, L.canon(w).arr
+            err = max(err, int((cg - cw).abs().max()) if cg.numel() else 0)
+        max_err[key] = max(max_err[key], err)
+        if err:
+            fail(f"{key} differs from its plain body on {tag} by value")
+        shape = tuple(gl[0].arr.shape)
+        print(f"kernel vs plain: {key}: {tag}: {len(gl)} x {shape} equal by "
+              f"canonical value, within the declared bounds")
+
+    with torch.inference_mode():
+        for key in FK.KERNELS:
+            n = WIDTHS[key]
+            compare(key, f"random + boundary lanes, {n} lanes",
+                    body_inputs(key, n))
+            if n != 1:
+                compare(key, "1 lane", body_inputs(key, 1))
+            compare(key, "70 lanes (no multiple of 64)", body_inputs(key, 70))
+            n_args = len(FK.signature(key)[1])
+            if n_args > 1:
+                compare(key, "an unbatched (18,) last operand",
+                        body_inputs(key, 77, const_last=1))
+            else:
+                compare(key, "an unbatched (18,) operand",
+                        body_inputs(key, 1, const_last=1))
 
     # -- 4. the main path --------------------------------------------------------
-    rng = np.random.default_rng(args.seed)
+    def reset_counts():
+        MK.launches = 0
+        FK.launches.update(dict.fromkeys(FK.launches, 0))
+
+    def check_counts(tag):
+        got = dict(FK.launches)
+        exact = {k: got[k] for k in MAIN_PATH_LAUNCHES}
+        if exact != MAIN_PATH_LAUNCHES:
+            fail(f"{tag}: fused kernel launches {exact}, "
+                 f"want {MAIN_PATH_LAUNCHES}")
+        idle = [k for k, v in got.items() if not v and k not in OFF_PATH]
+        if idle or MK.launches == 0:
+            fail(f"{tag}: the main path launched no {idle or 'montmul'} kernel")
+        if any(got[k] for k in OFF_PATH):
+            fail(f"{tag}: unexpected launches of {sorted(OFF_PATH)}")
+        return {**got, "montmul": MK.launches}
+
     msgs = [rng.bytes(32) for _ in range(B)]
     if len(set(msgs)) != B:
         fail("message fixture is not distinct")
@@ -196,18 +364,16 @@ def main() -> int:
     print(f"sign: {B} signatures in {sign_s:.2f} s; {min(8, B)} agree with "
           "the host oracle")
 
-    MK.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     ok = api.batch_verify(msgs, sigs, pks, mode="adaptive")
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
-    main_launches = MK.launches
-    if main_launches == 0:
-        fail("the main path launched no montmul kernel")
+    main_launches = check_counts("cold adaptive run")
     if ok.shape != (B,) or not ok.all():
         fail(f"adaptive rejected a valid batch: {int((~ok).sum())} false")
     print(f"verify adaptive B={B}: all {B} valid, {cold_s:.2f} s cold, "
-          f"{main_launches} montmul launches")
+          f"launches {json.dumps(main_launches)}")
 
     swapped = list(sigs)
     swapped[B // 3] = sigs[B // 3 + 1]
@@ -234,25 +400,42 @@ def main() -> int:
         w = BV.random_weights(B, 128, dev)
         pts, points_ms = events_ms(torch, lambda: BV._fused_points(
             hx, hy, sx, sy, pqx, pqy, w, w.half_bits))
+        (_, ws), ladder_ms = events_ms(torch, lambda: BV._apply_weights(
+            hx, hy, sx, sy, w, w.half_bits))
+        _, tree_sum_ms = events_ms(torch, lambda: BV._g1_tree_sum(ws))
         f_red, miller_ms = events_ms(torch, lambda: BV._miller_reduce(*pts))
         one, fe_ms = events_ms(
             torch, lambda: T.fq12_is_one(FE.final_exp(f_red)))
         if not bool(one):
             fail("the stage-by-stage fused check rejected the valid batch")
-    MK.launches = 0
+        # the final exponentiation's parts, as FE.final_exp runs them
+        f_cyc, easy_ms = events_ms(torch, lambda: T.fq12_retag(
+            FE.easy_part(T.fq12_retag(f_red))))
+        ft1, expu_ms = events_ms(torch, lambda: T.fq12_retag(FE.exp_u(f_cyc)))
+        ft2 = T.fq12_retag(FE.exp_u(ft1))
+        ft3 = T.fq12_retag(FE.exp_u(ft2))
+        f_fin, hard_ms = events_ms(torch, lambda: FE._retag_tight(
+            FE.hard_combine(f_cyc, ft1, ft2, ft3)))
+        one, is_one_ms = events_ms(torch, lambda: T.fq12_is_one(f_fin))
+        if not bool(one):
+            fail("the part-by-part final exponentiation rejected the batch")
+    reset_counts()
     t0 = time.perf_counter()
     ok, e2e_ms = events_ms(
         torch, lambda: api.batch_verify(msgs, sigs, pks, mode="adaptive"))
     e2e_host_s = time.perf_counter() - t0
-    warm_launches = MK.launches
+    warm_launches = check_counts("warm adaptive run")
     if not ok.all():
         fail("warm adaptive run rejected the valid batch")
     stages = {
         "hash_ms": hash_ms, "weights_points_ms": points_ms,
+        "glv_ladders_ms": ladder_ms, "g1_tree_sum_ms": tree_sum_ms,
         "miller_reduce_ms": miller_ms, "final_exp_is_one_ms": fe_ms,
+        "fe_easy_part_ms": easy_ms, "fe_one_exp_u_ms": expu_ms,
+        "fe_hard_part_ms": hard_ms, "fe_is_one_ms": is_one_ms,
         "e2e_adaptive_ms": e2e_ms, "verifies_per_s": B / (e2e_ms / 1e3),
-        "montmul_launches_per_batch": warm_launches,
-        "montmul_launches_per_verify": warm_launches / B,
+        "launches_per_batch": warm_launches,
+        "montmul_launches_per_verify": warm_launches["montmul"] / B,
         "sign_s": sign_s, "cold_adaptive_s": cold_s, "warm_host_s": e2e_host_s,
         "batch": B,
     }
@@ -260,65 +443,98 @@ def main() -> int:
           + json.dumps({k: round(v, 4) if isinstance(v, float) else v
                         for k, v in stages.items()}))
 
-    # device busy share of one Miller doubling digit on the B+1 rows:
-    # kernel time summed by the profiler over the digit's unprofiled wall time
-    px, py = pts[0], pts[1]
-    qx, qy = pts[2], pts[3]
+    # device busy share (profiler kernel time over unprofiled wall time) of
+    # one miller_dbl_body launch on the B+1 rows and of one whole exp_u on
+    # the scalar final exponentiation, as the main path runs them
+    from torch.profiler import ProfilerActivity, profile
+
+    px, py, qx, qy = pts[:4]
     with torch.inference_mode():
         f0 = M._pin_fq12(T.fq12_one(px.batch_shape, dev))
-        proj0 = M._pin_proj(M.ProjG2(qx, qy, T.fq2_one(px.batch_shape, dev)))
-
-        def digit():
-            f = T.fq12_sq(f0)
-            _, line = M.dbl_step(proj0, px, py)
-            return M.fq12_mul_line(f, *line)
-
-        digit()
-        torch.cuda.synchronize()
-        t0_host = time.perf_counter()
-        digit()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0_host) * 1e3
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            digit()
+        t_0 = M._pin_proj(M.ProjG2(qx, qy, T.fq2_one(px.batch_shape, dev)))
+        xpp, ypp = M._pin_el(px), M._pin_el(py)
+        probes = {
+            "miller_dbl_body_launch": lambda: FK.fused_op(
+                M._dbl_body_impl, "miller_dbl_body", f0, t_0, xpp, ypp),
+            "exp_u": lambda: FE.exp_u(f_cyc),
+        }
+        for tag, fn in probes.items():
+            fn()
             torch.cuda.synchronize()
-    dev_us = sum(getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-                 for e in prof.key_averages())
-    n_ops = sum(e.count for e in prof.key_averages()
-                if e.key.startswith("aten::"))
-    stages["miller_digit_wall_ms"] = wall_ms
-    stages["miller_digit_device_ms"] = dev_us / 1e3 if dev_us else None
-    stages["miller_digit_busy_share"] = (
-        dev_us / 1e3 / wall_ms if dev_us else None)
-    stages["miller_digit_aten_ops"] = n_ops
-    print(f"busy share, one Miller digit on {B + 1} rows: wall {wall_ms:.1f} ms, "
-          f"device {stages['miller_digit_device_ms']} ms, "
-          f"{n_ops} aten ops (profiler)")
+            t0_host = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0_host) * 1e3
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            dev_us = sum(getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0))
+                         for e in prof.key_averages())
+            n_ops = sum(e.count for e in prof.key_averages()
+                        if e.key.startswith("aten::"))
+            stages[f"{tag}_wall_ms"] = wall_ms
+            stages[f"{tag}_device_ms"] = dev_us / 1e3 if dev_us else None
+            stages[f"{tag}_busy_share"] = dev_us / 1e3 / wall_ms if dev_us else None
+            print(f"busy share, {tag}: wall {wall_ms:.3f} ms, device "
+                  f"{stages[f'{tag}_device_ms']} ms, {n_ops} aten ops (profiler)")
 
-    # kernel vs plain times at the widest main-path shape
+    # per kernel: ms per launch at the main-path width, bound, plain ms
+    kernels = []
     a_c, b_c = a_w.contiguous(), b_w.contiguous()
     _, k_ms = events_ms(torch, lambda: MK.montmul_cuda(a_c, b_c), reps=50)
     _, p_ms = events_ms(torch, lambda: MK.montmul_plain(a_c, b_c), reps=5)
-    bytes_moved = 3 * NLIMBS * 8 * wide
-    mads = 2 * NLIMBS * NLIMBS * wide
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = mads / INT32_MAD_PER_S * 1e3
-    kern = {
+    t_bytes = 3 * NLIMBS * 8 * wide / HBM_BYTES_PER_S * 1e3
+    t_ops = LEAF_MADS * wide / INT32_MAD_PER_S * 1e3
+    kernels.append({
         "name": "montmul", "route": "cuda",
         "source": "bn254_tpu_torch/kernels/montmul.cu",
         "replaces": "bn254_tpu/kernels/montmul.py:50",
-        "launches": main_launches, "max_abs_err": max_err,
-        "ms": k_ms, "plain_ms": p_ms,
-        "bound_ms": max(t_bytes, t_ops),
+        "launches": main_launches["montmul"], "max_abs_err": max_err["montmul"],
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
-    }
+    })
+    off_path = []  # measured and printed, but not kernels of the main path
+    with torch.inference_mode():
+        for key, kern in FK.KERNELS.items():
+            body = FK.signature(key)[0]
+            n_in, n_out = FK.arity(key)
+            n = WIDTHS[key]
+            args_ = body_inputs(key, n)
+            leaves = [0]
+            with plain_leaf(leaves):  # leaf multiplies per lane, on 1 lane
+                body(*body_inputs(key, 1))
+            packed, _ = FK.pack(L.tree_leaves(args_))
+            out = torch.empty((n_out, NLIMBS, n), dtype=torch.int64, device=dev)
+            FK._launch(key, packed, out)
+            _, ms = events_ms(torch, lambda: FK._launch(key, packed, out),
+                              reps=20)
+            _, wrap_ms = events_ms(torch, lambda: FK.fused_op(body, key, *args_),
+                                   reps=5)
+            with plain_leaf():
+                _, plain_ms = events_ms(torch, lambda: body(*args_), reps=3)
+            t_bytes = (n_in + n_out) * NLIMBS * 8 * n / HBM_BYTES_PER_S * 1e3
+            t_ops = leaves[0] * LEAF_MADS * n / INT32_MAD_PER_S * 1e3
+            (off_path if key in OFF_PATH else kernels).append({
+                "name": key, "route": "cuda",
+                "source": "bn254_tpu_torch/kernels/fused.cu",
+                "replaces": kern.replaces, "launches": main_launches[key],
+                "max_abs_err": max_err[key], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": None,
+            })
+            print(f"kernel {key}: {n} lanes, {leaves[0]} leaf multiplies per "
+                  f"lane, {ms:.4f} ms per launch ({wrap_ms:.4f} ms through "
+                  f"fused_op), plain {plain_ms:.3f} ms, bound "
+                  f"{max(t_bytes, t_ops):.6f} ms")
+    for k in off_path:
+        print(f"kernel {k['name']} is off the main path (0 launches there), "
+              f"so not on the kernels line: {json.dumps(k)}")
     print(card)
-    print(json.dumps({"kernels": [kern]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

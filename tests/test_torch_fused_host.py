@@ -1,0 +1,225 @@
+"""The fused CUDA kernels' arithmetic, built for the host with g++.
+
+`bn254_tpu_torch/kernels/fused.cu` and its device library
+`bn254_tower.cuh` compile under a host compiler into `bn254_host_<key>`
+launchers that run the same lane bodies the card runs. With
+BN254_CHECK_BOUNDS defined, every CIOS operand limb is checked < 2^16,
+every Fp result < 2p with limbs < 2^15, and every loaded value < 2^270.
+Each body is held against the port's plain body (what CPU tensors run) on 5
+lanes, boundary lanes included: by canonical value, and every output within
+the bounds the plain body declares. The shared leaf `cios` is held bit for
+bit against `montmul_plain`. This is the only run of the kernels'
+arithmetic off the card.
+"""
+
+import ctypes
+import pathlib
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from bn254_tpu_torch.constants import NLIMBS, P
+from bn254_tpu_torch.curve import glv as GLV
+from bn254_tpu_torch.curve import jacobian as J
+from bn254_tpu_torch.curve.ops import FqOps
+from bn254_tpu_torch.fields import limbs as L
+from bn254_tpu_torch.fields import tower as T
+from bn254_tpu_torch.host import curve as HC
+from bn254_tpu_torch.kernels import fused as FK
+from bn254_tpu_torch.kernels import montmul as MK
+from bn254_tpu_torch.pairing import final_exp as FE
+from bn254_tpu_torch.pairing import miller as M
+from bn254_tpu_torch.utils import convert as CV
+
+SRC = pathlib.Path(FK.__file__).resolve().parent / "fused.cu"
+N = 5
+PINNED = (L.STD_BOUND, 1 << 16)
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed")
+    out = tmp_path_factory.mktemp("fused_host") / "fused_host.so"
+    r = subprocess.run(
+        [gxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-DBN254_CHECK_BOUNDS",
+         "-x", "c++", str(SRC), "-o", str(out)],
+        capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    return ctypes.CDLL(str(out))
+
+
+def boundary_limbs(rng, n_els):
+    """(n_els, 18, N) limbs within the pinned bound (value < 2^262, limbs
+    < 2^16): lane 0 every low limb at 2^16-1 with the largest top limb the
+    bound allows, lane 1 the value 2^262-1, lane 2 zero, lanes 3.. random
+    lazy limbs."""
+    x = rng.integers(0, 1 << 16, size=(n_els, NLIMBS, N), dtype=np.int64)
+    x[:, NLIMBS - 1, :] = rng.integers(0, 126, size=(n_els, N))
+    x[:, :, 0] = (1 << 16) - 1
+    x[:, NLIMBS - 1, 0] = 125
+    x[:, :, 1] = (1 << 15) - 1
+    x[:, NLIMBS - 1, 1] = ((1 << 262) - 1) >> (15 * (NLIMBS - 1))
+    x[:, :, 2] = 0
+    vals = L.to_ints(np.moveaxis(x, 1, 0))
+    assert max(int(v) for v in vals.reshape(-1)) < L.STD_BOUND
+    assert int(vals[0, 1]) == L.STD_BOUND - 1
+    return x
+
+
+def host_fn(lib, key):
+    """bn254_host_<key>(in, out, n) -> failed bound checks."""
+    fn = getattr(lib, f"bn254_host_{key}")
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_against_plain(lib, key, packed, bounds=PINNED):
+    """The host build of `key` on `packed` against the plain body (CPU
+    `fused_op`) by canonical value and the declared bounds; returns the
+    plain body's output leaves."""
+    n_in, n_out = FK.arity(key)
+    assert packed.shape == (n_in, NLIMBS, N)
+    inp = np.ascontiguousarray(packed)
+    got = np.zeros((n_out, NLIMBS, N), dtype=np.int64)
+    faults = host_fn(lib, key)(inp.ctypes.data, got.ctypes.data, N)
+    assert faults == 0, f"{faults} bound checks failed in the host build"
+
+    args = FK.args_from_leaves(
+        key, [CV.from_numpy(packed[i], *bounds) for i in range(n_in)])
+    want = L.tree_leaves(FK.fused_op(FK.signature(key)[0], key, *args))
+    assert len(want) == n_out
+    for i, w in enumerate(want):
+        g = L.to_ints(got[i])
+        assert all(int(v) < min(w.vmax, P) for v in g), (key, i)  # canonical
+        assert int(got[i].max()) < w.lmax and int(got[i].min()) >= 0
+        assert [int(v) for v in g] == [int(v) % P for v in L.to_ints(w)]
+    return want
+
+
+@pytest.mark.parametrize("key", sorted(FK.KERNELS))
+def test_host_body_matches_plain_by_value(host_lib, key):
+    rng = np.random.default_rng(sorted(FK.KERNELS).index(key) + 41)
+    check_against_plain(host_lib, key, boundary_limbs(rng, FK.arity(key)[0]))
+
+
+def test_host_load_carries_lazy_limbs(host_lib):
+    """Inputs beyond the pins (limbs up to 2^20, values up to 2^263), as a
+    standalone Fq12 op may get them, are carried by the kernels' load."""
+    rng = np.random.default_rng(47)
+    x = rng.integers(0, 1 << 20, size=(24, NLIMBS, N), dtype=np.int64)
+    x[:, NLIMBS - 1] = rng.integers(0, 1 << 7, size=(24, N))
+    x[:, :, 0] = (1 << 20) - 1
+    x[:, NLIMBS - 1, 0] = (1 << 7) - 1
+    vals = L.to_ints(np.moveaxis(x, 1, 0))
+    assert max(int(v) for v in vals.reshape(-1)) < 1 << 263
+    check_against_plain(host_lib, "fq12_mul", x, (1 << 263, 1 << 20))
+
+
+def test_host_glv_step_edge_cases(host_lib):
+    """The complete addition's selects: lane 0 has acc the identity (Z = 0),
+    lane 1 sel the identity, lane 2 both; lane 3 adds sel = 2acc (the
+    doubling branch), lane 4 adds sel = -2acc (P + (-P), the identity)."""
+    rng = np.random.default_rng(48)
+    x = boundary_limbs(rng, 6)
+    x[2, :, 0] = 0  # acc.z
+    x[5, :, 1] = 0  # sel.z
+    acc = J.JPoint(*[CV.from_numpy(x[i], *PINNED) for i in range(3)])
+    d = [L.canon(e).arr.numpy() for e in J.double(FqOps, acc)]
+    neg_dy = L.canon(L.neg_mod(J.double(FqOps, acc).y)).arr.numpy()
+    for i in range(3):
+        x[3 + i, :, 3] = d[i][:, 3]
+        x[3 + i, :, 4] = (d[0], neg_dy, d[2])[i][:, 4]
+    out = check_against_plain(host_lib, "glv_dbl_add", x)
+    z = [int(v) % P for v in L.to_ints(out[2])]
+    assert z[2] == 0 and z[4] == 0 and z[3] != 0
+    sel_z = [int(v) % P for v in L.to_ints(x[5])]
+    assert z[0] == sel_z[0]  # acc at infinity: the sum is sel
+
+
+def test_loops_through_the_host_kernels(host_lib, monkeypatch):
+    """The CUDA path of `fused_op` (packing, launch counts, learned bounds)
+    with the host build standing in for the card: the unrolled Miller loop
+    on a 3-digit schedule (both signs, a zero digit, both Frobenius steps),
+    exp_u on 4 windows (two zero, two nonzero) with its table, the easy
+    part, a full p - 2 power and a 4-step GLV ladder, by value against the
+    plain forms; the full schedules' launches are counted on the card by
+    chip_smoke.py and on the CPU by tests/test_torch_verify.py."""
+    def launch(key, packed, out):
+        fn = host_fn(host_lib, key)
+        assert fn(packed.data_ptr(), out.data_ptr(), packed.shape[2]) == 0
+
+    monkeypatch.setattr(T, "_on_card", lambda els: True)
+    monkeypatch.setattr(FK, "_on_cuda", lambda els: True)
+    monkeypatch.setattr(FK, "_launch", launch)
+    monkeypatch.setattr(FK, "launches", dict.fromkeys(FK.KERNELS, 0))
+
+    def counted(**want):
+        got = {k: v for k, v in FK.launches.items() if v}
+        FK.launches.update(dict.fromkeys(FK.launches, 0))
+        return got == want
+
+    g1 = [HC.g1_mul(HC.G1_ONE, 5 + i) for i in range(2)]
+    g2 = [HC.g2_mul(HC.G2_ONE, 9 + i) for i in range(2)]
+    px, py = CV.g1_batch_to_device_affine(g1)
+    qx, qy = CV.g2_batch_to_device_affine(g2)
+    naf = (1, 0, -1)
+    f = M.miller_loop(px, py, qx, qy, naf=naf)
+    assert counted(miller_dbl_body=3, miller_add_body=4)
+    with FK.kernel_mode():
+        want = M._miller_loop_scan(px, py, qx, qy, naf=naf)
+    assert bool(T.fq12_eq(f, want).all())
+
+    cyc = T.fq12_retag(FE.easy_part(T.fq12_retag(want)))
+    bits = bin(P - 2)[2:]  # one Fp inversion: 3-bit windows after the lead
+    wins = [bits[i:i + 3] for i in range(len(bits) % 3 or 3, len(bits), 3)]
+    nonzero = sum(int(b, 2) != 0 for b in wins)
+    assert counted(fq12_mul=2, el_pow_step_mul=nonzero,
+                   el_pow_step_sq=len(wins) - nonzero)
+    with FK.kernel_mode():
+        assert bool(T.fq12_eq(cyc, FE.easy_part(T.fq12_retag(want))).all())
+    windows = FE._U_WINDOWS[:4]
+    u = FE.exp_u(cyc, windows)
+    assert counted(expu_step=2, expu_sq2=2, fq12_cyc_sq=1, fq12_mul=1)
+    with FK.kernel_mode():
+        assert bool(T.fq12_eq(u, FE._exp_u_scan(cyc, windows)).all())
+    for e in L.tree_leaves(u):
+        assert (e.vmax, e.lmax) == (L.STD_BOUND, 1 << 16)
+        assert int(e.arr.max()) < 1 << 15  # the kernels return carried limbs
+
+    p = J.JPoint(px, py, L.mont_one((2,)))
+    w = GLV.glv_weights_to_device([(0b1011, 0b0110), (0b0001, 0b1111)], 8)
+    got = GLV.shamir_scalar_mul(p, w)
+    assert counted(glv_dbl_add=4)
+    with FK.kernel_mode():
+        ref = GLV.shamir_scalar_mul(p, w)
+    assert bool(same_point(got, ref).all())
+
+
+def same_point(a, b):
+    """Projective equality of Jacobian G1 points (X1 Z2^2 == X2 Z1^2, ...)."""
+    z1, z2 = L.mont_sqr(a.z), L.mont_sqr(b.z)
+    x = L.eq(L.mont_mul(a.x, z2), L.mont_mul(b.x, z1))
+    y = L.eq(L.mont_mul(L.mont_mul(a.y, z2), b.z),
+             L.mont_mul(L.mont_mul(b.y, z1), a.z))
+    return x & y
+
+
+def test_host_leaf_is_bit_exact_with_montmul_plain(host_lib):
+    rng = np.random.default_rng(7)
+    n = 64
+    a = rng.integers(0, 1 << 16, size=(NLIMBS, n), dtype=np.int64)
+    b = rng.integers(0, 1 << 16, size=(NLIMBS, n), dtype=np.int64)
+    a[NLIMBS - 1] = rng.integers(0, 1 << 7, size=n)  # a*b + R p < 2^538
+    b[NLIMBS - 1] = rng.integers(0, 1 << 7, size=n)
+    out = np.zeros((NLIMBS, n), dtype=np.int64)
+    host_lib.bn254_host_cios.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64]
+    host_lib.bn254_host_cios.restype = None
+    host_lib.bn254_host_cios(a.ctypes.data, b.ctypes.data, out.ctypes.data, n)
+    want = MK.montmul_plain(torch.from_numpy(a), torch.from_numpy(b))
+    assert np.array_equal(out, want.numpy())

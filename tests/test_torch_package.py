@@ -62,6 +62,58 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):
     assert api.resolve_device("cpu") == torch.device("cpu")
 
 
+def fake_nvcc(tmp_path, fail_on=""):
+    """A compiler script that writes an empty library to its -o argument,
+    logs each source it is given, and refuses `fail_on`."""
+    script = tmp_path / "nvcc"
+    script.write_text(
+        "#!/bin/sh\n"
+        "for a; do case $a in *.cu) src=$a;; esac; done\n"
+        f'echo "$src" >> {tmp_path / "nvcc.log"}\n'
+        + (f'case $src in *"{fail_on}") exit 1;; esac\n' if fail_on else "")
+        + 'while [ $# -gt 0 ]; do [ "$1" = -o ] && : > "$2"; shift; done\n')
+    script.chmod(0o755)
+    return lambda: str(script)
+
+
+def test_edited_header_rebuilds_the_library(monkeypatch, tmp_path):
+    """The library digest covers the headers a source includes: an edit of
+    bn254_tower.cuh alone builds fused.cu anew instead of loading it stale."""
+    src_dir = tmp_path / "src"
+    src_dir.mkdir()
+    for f in ("fused.cu", "bn254_tower.cuh"):
+        (src_dir / f).write_bytes((build.SRC_DIR / f).read_bytes())
+    monkeypatch.setattr(build, "SRC_DIR", src_dir)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    monkeypatch.setattr(build, "_loaded", {})
+    monkeypatch.setattr(build, "nvcc", fake_nvcc(tmp_path))
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: path)
+    assert build.local_headers(src_dir / "fused.cu") == [
+        src_dir / "bn254_tower.cuh"]
+    first = build.library("fused")
+    build._loaded.clear()
+    assert build.library("fused") == first  # unchanged: reused, not rebuilt
+    with open(src_dir / "bn254_tower.cuh", "a") as fh:
+        fh.write("// edited\n")
+    build._loaded.clear()
+    assert build.library("fused") != first
+    assert len((tmp_path / "nvcc.log").read_text().split()) == 2
+
+
+def test_build_starts_every_source_and_names_each_failure(monkeypatch,
+                                                          tmp_path):
+    """`build` runs one compiler per source; a refused source raises with
+    its name, the other is built, and no temporary file is left."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    monkeypatch.setattr(build, "nvcc", fake_nvcc(tmp_path, "fused.cu"))
+    with pytest.raises(build.KernelBuildError, match="fused.cu") as err:
+        build.build(["montmul", "fused", "montmul"])
+    assert "montmul" not in str(err.value)
+    assert len((tmp_path / "nvcc.log").read_text().split()) == 2
+    assert [f.name for f in (tmp_path / "out").iterdir()] == [
+        build._output("montmul").name]
+
+
 def test_failed_kernel_build_raises(monkeypatch, tmp_path):
     """A compiler that refuses the source raises; nothing is loaded."""
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)

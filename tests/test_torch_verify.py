@@ -96,6 +96,45 @@ def test_fused_tier_matches_jax(batch):
     assert not bool(BV.verify_batch_fused(*to_port(*tampered), pw))
 
 
+@pytest.mark.isolated
+def test_kernel_composition_matches_jax(batch, monkeypatch):
+    """Kernels forced on (`tower._on_card`): the fused and adaptive tiers
+    run the card's composition (every Fq12 op, power, GLV ladder step,
+    Miller digit and exp_u window through `fused_op`) with the plain
+    bodies, and give JAX's answers. JAX's adaptive tier on the tampered
+    batch rejects in its fused check (above) and gives its fallback's bools,
+    which tests/test_torch_independent.py holds to EXPECTED against
+    `verify_batch_independent_staged`."""
+    from bn254_tpu_torch.kernels import fused as FK
+    from test_torch_independent import EXPECTED
+
+    calls = dict.fromkeys(FK.KERNELS, 0)
+    fused_op = FK.fused_op
+
+    def counted(fn, key, *args):
+        calls[key] += 1
+        return fused_op(fn, key, *args)
+
+    monkeypatch.setattr(T, "_on_card", lambda els: True)
+    monkeypatch.setattr(FK, "fused_op", counted)
+    good, tampered, _, pw = batch
+    assert bool(BV.verify_batch_fused(*to_port(*good), pw))
+    assert calls == {
+        "miller_dbl_body": 65, "miller_add_body": 23,  # NAF + 2 Frobenius
+        "expu_step": 69, "expu_sq2": 24,  # 3 exp_u x 23 / 8 windows
+        # the B+1 = 5 row product tree 3, the easy part 2, three exp_u
+        # tables 3, the hard part 13; the tables 3 and the hard part 4
+        "fq12_mul": 21, "fq12_sq": 0, "fq12_cyc_sq": 7,
+        # two Fp inversions (to affine, fq12_inv), p - 2 in 3-bit windows:
+        # 66 nonzero and 18 zero each
+        "el_pow_step_mul": 132, "el_pow_step_sq": 36,
+        "glv_dbl_add": BITS // 2,  # one ladder step per weight-half bit
+    }
+    got = BV.verify_batch_adaptive(*to_port(*tampered), weights=pw)
+    assert got.tolist() == EXPECTED
+    assert calls["miller_dbl_body"] == 3 * 65  # + fused + independent
+
+
 def test_weight_forms_are_validated():
     """GlvWeights, PlainWeights and host ints resolve; a raw El or a weight
     wider than the ladder is refused (it would weaken the forgery bound)."""
