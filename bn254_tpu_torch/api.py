@@ -1,9 +1,10 @@
-"""High-level batched device API: sign / verify.
+"""High-level batched device API: sign / verify / key consistency.
 
-Counterpart of `bn254_tpu/api.py` (`batch_sign`, `batch_verify`). Bridges
-host points (Python ints) and the device pipeline (Montgomery limb
-tensors). Both entry points run on the CUDA card unless the caller passes
-`device="cpu"`; with no card and no `device=` they raise.
+Counterpart of `bn254_tpu/api.py` (`batch_sign`, `batch_verify`,
+`batch_check_public_keys`). Bridges host points (Python ints) and the device
+pipeline (Montgomery limb tensors). The entry points run on the CUDA card
+unless the caller passes `device="cpu"`; with no card and no `device=` they
+raise.
 """
 
 from __future__ import annotations
@@ -17,8 +18,10 @@ from .curve import g1 as DG1
 from .curve import jacobian as J
 from .dist import batch_verify as BV
 from .fields import limbs as L
+from .fields import tower as T
 from .hash.tai_batch import hash_to_g1_device
 from .host import curve as HC
+from .pairing import pairing as DP
 from .utils import convert as CV
 
 
@@ -109,3 +112,37 @@ def batch_verify(messages: list[bytes], signatures, public_keys,
         ).cpu())
     return bool(BV.verify_batch_fused(hx, hy, sx, sy, pqx, pqy, weights,
                                       nbits=cfg.rlc_bits))
+
+
+@torch.inference_mode()
+def batch_check_public_keys(public_keys_g2, public_keys_g1,
+                            device=None) -> np.ndarray:
+    """Batched G2 <-> G1 key-consistency check: per pair,
+    e(G1::one, PK2_i) * e(-PK1_i, G2::one) == 1.
+
+    public_keys_g2 / public_keys_g1: objects with a `.point` host Jacobian
+    point (G2 and G1). Returns np.ndarray of bool, one per pair. On the card
+    (`batch_verify._use_pair2`) the shared-squaring two-pair Miller loop
+    with +G2::one's precomputed lines; otherwise the two pairs stacked.
+    """
+    n = len(public_keys_g2)
+    if len(public_keys_g1) != n:
+        raise ValueError("one G1 public key per G2 public key")
+    dev = resolve_device(device)
+    g1x, g1y = CV.g1_batch_to_device_affine(
+        [HC.g1_neg(k.point) for k in public_keys_g1], dev)
+    pqx, pqy = CV.g2_batch_to_device_affine(
+        [k.point for k in public_keys_g2], dev)
+    onex, oney = (L.bcast_to(c, (n,))
+                  for c in CV.g1_batch_to_device_affine([HC.G1_ONE], dev))
+
+    if BV._use_pair2(onex, g1x, pqx):
+        # pair 1, the G1-side key against +G2::one, folds the generator's
+        # precomputed lines
+        ok = DP.pairing_check2(onex, oney, pqx, pqy, g1x, g1y,
+                               q_const="g2_one")
+    else:
+        g2x, g2y = CV.g2_const_affine(HC.G2_ONE, (n,), dev)
+        ok = DP.pairing_check(L.stack([onex, g1x]), L.stack([oney, g1y]),
+                              T.fq2_stack([pqx, g2x]), T.fq2_stack([pqy, g2y]))
+    return ok.cpu().numpy()

@@ -4,7 +4,9 @@ Counterpart of `bn254_tpu/dist/batch_verify.py`, single-device tiers only:
 
 1. `verify_batch_independent` — N independent (H(m), sig, pk) tuples:
    each tuple is its own 2-pair product check with its own final
-   exponentiation (the pair axis stacked in front of the batch axis).
+   exponentiation. On the card (`_use_pair2`) the shared-squaring two-pair
+   Miller loop with -G2::one's precomputed lines; on the CPU the pair axis
+   stacked in front of the batch axis.
 2. `verify_batch_fused` — N tuples fused into ONE pairing-product check
    with random linear-combination weights:
    prod_i e([w_i]H_i, pk_i) * e(-sum_i [w_i]sig_i, G2) == 1, a single
@@ -64,7 +66,16 @@ def verify_batch_independent(hx, hy, sx, sy, pqx, pqy) -> torch.Tensor:
     Each tuple checks e(H, pk) * e(sig, -G2::one) == 1 with its own final
     exponentiation (exact per-tuple accept/reject).
     """
+    if _use_pair2(hx, sx, pqx):
+        return DP.pairing_check2(hx, hy, pqx, pqy, sx, sy)
     return DP.pairing_check(*_independent_pairs(hx, hy, sx, sy, pqx, pqy))
+
+
+def _use_pair2(hx, sx, pqx) -> bool:
+    """The shared-squaring constant-Q two-pair Miller loop
+    (`pairing.pairing_check2`): on the kernels (CUDA tensors), as the JAX
+    package takes it on its fused path by default."""
+    return T._use_kernels(hx, sx, pqx.c0)
 
 
 # ---------------------------------------------------------------------------

@@ -7,6 +7,8 @@
 //   key              TPU body                       in -> out (18-limb Els)
 //   miller_dbl_body  pairing/miller.py:257            20 -> 18
 //   miller_add_body  pairing/miller.py:265            24 -> 18
+//   miller_dbl_body2 pairing/miller.py:334            28 -> 18
+//   miller_add_body2 pairing/miller.py:352            32 -> 18
 //   expu_step        pairing/final_exp.py:45          24 -> 12
 //   expu_sq2         pairing/final_exp.py:53          12 -> 12
 //   fq12_mul         fields/tower.py:374              24 -> 12
@@ -27,12 +29,13 @@
 // for limb (chip_smoke.py and tests/test_torch_fused_host.py compare so).
 //
 // Design: one thread per lane, 64-thread blocks (8,193 Miller lanes fill
-// 129 blocks, about one per SM). The Fq12 accumulator and the temporaries
+// 129 blocks, about one per SM; the two-pair bodies of the independent tier
+// at 4,096 tuples fill 64, half the SMs). The Fq12 accumulator and the temporaries
 // live in local memory; the Fq2-level functions and the leaf are not
 // inlined, which keeps the nvcc build in seconds. The limb layout makes
 // each lane's limb loads coalesced across a warp.
 //
-// What bounds it: per lane a body does 4-132 leaf multiplies of 648 32-bit
+// What bounds it: per lane a body does 3-172 leaf multiplies of 648 32-bit
 // multiply-adds each and moves (n_in + n_out) x 18 x 8 bytes, so the INT32
 // rate is the nominal bound; at one thread per lane and one lane for the
 // shared final exponentiation, latency of the dependent leaf chain is what
@@ -121,6 +124,52 @@ BN_FN BN_INLINE void lane_miller_add_body(const int64_t* in, int64_t* out,
   load_els(&xp, 1, 22, in, n, e);
   load_els(&yp, 1, 23, in, n, e);
   miller_add_body(fo, to, f, t, qx, qy, xp, yp);
+  store_els(out, 0, els(fo), 12, n, e);
+  store_els(out, 12, els(to), 6, n, e);
+}
+
+// inputs (f, t, xp0, yp0, ca, cb, cc, xp1, yp1) -> outputs (f, t); the
+// constant triple is one (18,) El each, broadcast over the lanes by the
+// wrapper's packing like any other operand
+BN_FN BN_INLINE void lane_miller_dbl_body2(const int64_t* in, int64_t* out,
+                                           int64_t n, int64_t e) {
+  Fq12 f, fo;
+  ProjG2 t, to;
+  Fq2 ca, cb, cc;
+  Fp xp0, yp0, xp1, yp1;
+  load_els(els(f), 12, 0, in, n, e);
+  load_els(els(t), 6, 12, in, n, e);
+  load_els(&xp0, 1, 18, in, n, e);
+  load_els(&yp0, 1, 19, in, n, e);
+  load_els(els(ca), 2, 20, in, n, e);
+  load_els(els(cb), 2, 22, in, n, e);
+  load_els(els(cc), 2, 24, in, n, e);
+  load_els(&xp1, 1, 26, in, n, e);
+  load_els(&yp1, 1, 27, in, n, e);
+  miller_dbl_body2(fo, to, f, t, xp0, yp0, ca, cb, cc, xp1, yp1);
+  store_els(out, 0, els(fo), 12, n, e);
+  store_els(out, 12, els(to), 6, n, e);
+}
+
+// inputs (f, t, qx, qy, xp0, yp0, ca, cb, cc, xp1, yp1) -> outputs (f, t)
+BN_FN BN_INLINE void lane_miller_add_body2(const int64_t* in, int64_t* out,
+                                           int64_t n, int64_t e) {
+  Fq12 f, fo;
+  ProjG2 t, to;
+  Fq2 qx, qy, ca, cb, cc;
+  Fp xp0, yp0, xp1, yp1;
+  load_els(els(f), 12, 0, in, n, e);
+  load_els(els(t), 6, 12, in, n, e);
+  load_els(els(qx), 2, 18, in, n, e);
+  load_els(els(qy), 2, 20, in, n, e);
+  load_els(&xp0, 1, 22, in, n, e);
+  load_els(&yp0, 1, 23, in, n, e);
+  load_els(els(ca), 2, 24, in, n, e);
+  load_els(els(cb), 2, 26, in, n, e);
+  load_els(els(cc), 2, 28, in, n, e);
+  load_els(&xp1, 1, 30, in, n, e);
+  load_els(&yp1, 1, 31, in, n, e);
+  miller_add_body2(fo, to, f, t, qx, qy, xp0, yp0, ca, cb, cc, xp1, yp1);
   store_els(out, 0, els(fo), 12, n, e);
   store_els(out, 12, els(to), 6, n, e);
 }
@@ -259,6 +308,8 @@ extern "C" void bn254_host_cios(const int64_t* a, const int64_t* b,
 
 BN254_FUSED_KERNEL(miller_dbl_body)
 BN254_FUSED_KERNEL(miller_add_body)
+BN254_FUSED_KERNEL(miller_dbl_body2)
+BN254_FUSED_KERNEL(miller_add_body2)
 BN254_FUSED_KERNEL(expu_step)
 BN254_FUSED_KERNEL(expu_sq2)
 BN254_FUSED_KERNEL(fq12_mul)

@@ -55,6 +55,12 @@ KERNELS = {
     "miller_add_body": Kernel("bn254_miller_add_body",
                               "pairing.miller:_add_body_impl",
                               "bn254_tpu/pairing/miller.py:265"),
+    "miller_dbl_body2": Kernel("bn254_miller_dbl_body2",
+                               "pairing.miller:_dbl_body2_impl",
+                               "bn254_tpu/pairing/miller.py:334"),
+    "miller_add_body2": Kernel("bn254_miller_add_body2",
+                               "pairing.miller:_add_body2_impl",
+                               "bn254_tpu/pairing/miller.py:352"),
     "expu_step": Kernel("bn254_expu_step", "pairing.final_exp:_expu_step_impl",
                         "bn254_tpu/pairing/final_exp.py:45"),
     "expu_sq2": Kernel("bn254_expu_sq2", "pairing.final_exp:_expu_sq2_impl",

@@ -3,9 +3,11 @@
 Counterpart of `bn254_tpu/pairing/miller.py`: its step bodies
 (`_dbl_step_impl`, `_add_step_impl`, `_fq12_mul_line_impl`), its bound
 pins, its unrolled form `_miller_loop_unrolled` (one fused CUDA kernel per
-digit, kernels/fused.py; the form CUDA tensors take) and its scan form
+digit, kernels/fused.py; the form CUDA tensors take), its scan form
 `_miller_loop_scan`, here a Python loop over the static NAF schedule of
-6u + 2 (the form CPU tensors take).
+6u + 2 (the form CPU tensors take), and the shared-squaring two-pair form
+`_miller_loop_pair2_unrolled` with its bodies `_dbl_body2_impl` and
+`_add_body2_impl` (the independent tier on the card, pairing.pairing_check2).
 
 * G2 points stay in homogeneous projective coordinates on the twist; line
   evaluations are division-free and scaled by subfield factors (killed by
@@ -24,6 +26,7 @@ Line math (D-twist, tower w^2 = v, v^3 = xi):
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -275,6 +278,104 @@ def _miller_loop_unrolled(xp, yp, qx: Fq2, qy: Fq2, inf_mask=None,
 
     if inf_mask is not None:
         f = T.fq12_select(inf_mask, T.fq12_one(batch, dev), f)
+    return f
+
+
+# ---------------------------------------------------------------------------
+# shared-squaring 2-pair Miller loop with a constant-Q second pair
+# ---------------------------------------------------------------------------
+
+
+def _dbl_body2_impl(f: Fq12, t: ProjG2, xp0: L.El, yp0: L.El, ca: Fq2,
+                    cb: Fq2, cc: Fq2, xp1: L.El, yp1: L.El):
+    """One doubling digit for BOTH pairs of a tuple under ONE shared
+    accumulator squaring: sq + pair-0 tangent double and fold + pair-1
+    precomputed constant-line fold (kernel "miller_dbl_body2").
+
+    Valid because every pair's recurrence is f_i <- f_i^2 * l_i, so the
+    product satisfies (prod f_i) <- (prod f_i)^2 * prod l_i."""
+    f = T.fq12_sq(f)
+    t2, (a, b, c) = dbl_step(t, xp0, yp0)
+    f = fq12_mul_line(f, a, b, c)
+    a1 = T.fq2_mul_fq(ca, yp1)
+    b1 = T.fq2_mul_fq(cb, xp1)
+    f = fq12_mul_line(f, a1, b1, cc)
+    return _pin_fq12(f), _pin_proj(t2)
+
+
+def _add_body2_impl(f: Fq12, t: ProjG2, qx: Fq2, qy: Fq2, xp0: L.El,
+                    yp0: L.El, ca: Fq2, cb: Fq2, cc: Fq2, xp1: L.El,
+                    yp1: L.El):
+    """One addition digit for both pairs (no squaring on adds; kernel
+    "miller_add_body2")."""
+    t2, (a, b, c) = add_step(t, qx, qy, xp0, yp0)
+    f = fq12_mul_line(f, a, b, c)
+    a1 = T.fq2_mul_fq(ca, yp1)
+    b1 = T.fq2_mul_fq(cb, xp1)
+    f = fq12_mul_line(f, a1, b1, cc)
+    return _pin_fq12(f), _pin_proj(t2)
+
+
+@functools.lru_cache(maxsize=None)
+def _const_lines(coeffs: tuple, device: torch.device) -> tuple:
+    """A coefficient schedule as (kind, ca, cb, cc) with pinned (18,)
+    device Fq2s, made once per (schedule, device): the JAX package folds
+    them into its trace, and converting the 264 constants on every call
+    would put as many small host-to-device copies on the path."""
+    return tuple(
+        (kind, *[_pin_fq2(T.const_fq2(c, device)) for c in (ca, cb, cc)])
+        for kind, ca, cb, cc in coeffs)
+
+
+def _miller_loop_pair2_unrolled(xp0, yp0, qx: Fq2, qy: Fq2, xp1, yp1,
+                                coeffs, naf=None) -> Fq12:
+    """miller(P0, Q0) * miller(P1, Qc) with Qc a host constant.
+
+    Unrolled over the static NAF schedule like `_miller_loop_unrolled`, but
+    each launch advances BOTH pairs of a tuple: pair 0 (variable Q0, a
+    public key) does the full tangent/chord step; pair 1 (constant Qc, e.g.
+    -G2::one) folds a line from host-precomputed coefficients
+    (pairing/precompute.py). One `miller_dbl_body2` launch per digit, one
+    `miller_add_body2` per nonzero digit and per Frobenius step (65 + 23 on
+    the full schedule).
+
+    coeffs: `precompute.g2_line_coeffs(Qc_affine, naf)` output; its launch
+    order is asserted against this loop's digit schedule.
+    """
+    batch = torch.broadcast_shapes(xp0.batch_shape, qx.c0.batch_shape,
+                                   xp1.batch_shape)
+    dev = xp0.device
+    f = _pin_fq12(T.fq12_one(batch, dev))
+    t = _pin_proj(ProjG2(qx, qy, T.fq2_one(batch, dev)))
+    pqx, pqy = _pin_fq2(qx), _pin_fq2(qy)
+    nqy = _pin_fq2(T.fq2_neg(qy))
+    xpp0, ypp0 = _pin_el(xp0), _pin_el(yp0)
+    xpp1, ypp1 = _pin_el(xp1), _pin_el(yp1)
+
+    def const3(entry, kind):
+        k, ca, cb, cc = entry
+        assert k == kind, f"coeff schedule mismatch: {k} != {kind}"
+        return ca, cb, cc
+
+    it = iter(_const_lines(tuple(coeffs), dev))
+    for d in (_ATE_NAF if naf is None else naf):
+        ca, cb, cc = const3(next(it), "dbl")
+        f, t = FK.fused_op(_dbl_body2_impl, "miller_dbl_body2",
+                           f, t, xpp0, ypp0, ca, cb, cc, xpp1, ypp1)
+        if d != 0:
+            ca, cb, cc = const3(next(it), "add")
+            f, t = FK.fused_op(_add_body2_impl, "miller_add_body2",
+                               f, t, pqx, pqy if d > 0 else nqy,
+                               xpp0, ypp0, ca, cb, cc, xpp1, ypp1)
+
+    q1x, q1y = _twist_frob(pqx, pqy, 1)
+    q2x, q2y = _twist_frob(pqx, pqy, 2)
+    for ax, ay in ((q1x, q1y), (q2x, T.fq2_neg(q2y))):
+        ca, cb, cc = const3(next(it), "add")
+        f, t = FK.fused_op(_add_body2_impl, "miller_add_body2",
+                           f, t, _pin_fq2(ax), _pin_fq2(ay),
+                           xpp0, ypp0, ca, cb, cc, xpp1, ypp1)
+    assert next(it, None) is None, "unconsumed precomputed coefficients"
     return f
 
 

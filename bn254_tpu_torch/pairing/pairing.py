@@ -1,7 +1,10 @@
 """Pairing API: single, batched and product-reduced pairings.
 
 Counterpart of `bn254_tpu/pairing/pairing.py` (its staged forms): multiply
-the per-pair Miller values in Fq12, then ONE shared final exponentiation.
+the per-pair Miller values in Fq12, then ONE shared final exponentiation;
+or, for a tuple whose second G2 point is a constant, the shared-squaring
+two-pair Miller loop (`pairing_check2`). The port has no monolithic forms,
+so each function here serves both of the JAX package's.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from ..fields import limbs as L
 from ..fields import tower as T
 from . import final_exp as FE
 from . import miller as M
+from . import precompute as PC
 
 Fq12 = T.Fq12
 
@@ -66,3 +70,32 @@ def pairing_check(px, py, qx, qy) -> torch.Tensor:
     f = M.miller_loop(px, py, qx, qy)
     reduced = T.fq12_retag(fq12_reduce_mul(f, axis=0))
     return T.fq12_is_one(FE.final_exp(reduced))
+
+
+# ---------------------------------------------------------------------------
+# 2-pair tuple check with a constant second G2 point (pair2)
+# ---------------------------------------------------------------------------
+
+# q_const -> the constant point's coefficient schedule
+_CONST_COEFFS = {"neg_g2_one": PC.neg_g2_one_coeffs,
+                 "g2_one": PC.g2_one_coeffs}
+
+
+def _miller2(px0, py0, qx, qy, px1, py1, q_const: str = "neg_g2_one") -> Fq12:
+    return M._miller_loop_pair2_unrolled(px0, py0, qx, qy, px1, py1,
+                                         _CONST_COEFFS[q_const]())
+
+
+def pairing_check2(px0, py0, qx, qy, px1, py1,
+                   q_const: str = "neg_g2_one") -> torch.Tensor:
+    """e(P0, Q0) * e(P1, Qc) == 1 per tuple, Qc = -G2::one ("neg_g2_one",
+    verification) or +G2::one ("g2_one", the key-consistency check with the
+    G1 side negated).
+
+    One fq12_sq per digit per tuple, no device G2 arithmetic for the
+    constant pair, no pair-axis product: the same per-tuple answers as
+    stacking the two pairs through `pairing_check`. Its loop is the
+    unrolled kernel form, which callers take on the card only
+    (`dist.batch_verify._use_pair2`)."""
+    return T.fq12_is_one(
+        FE.final_exp(_miller2(px0, py0, qx, qy, px1, py1, q_const)))

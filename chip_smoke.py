@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of bn254_tpu_torch on one NVIDIA card (H100).
 
-    python3 chip_smoke.py [--batch 8192] [--keys 16] [--seed 2026]
+    python3 chip_smoke.py [--batch 8192] [--independent 4096] [--keys 16]
+                          [--seed 2026]
 
 Phases, each of which exits non-zero on failure:
 
@@ -15,36 +16,58 @@ Phases, each of which exits non-zero on failure:
      at the main path's widest shape (54 x batch lanes), a lane count that is
      no multiple of the block, lazy boundary limbs, a broadcast operand, and
      an 8-lane sample against the Python-int Montgomery oracle.
-   - The ten fused kernels of fused.cu against their plain bodies, run on
-     the card with the plain leaf and no kernel inside, by canonical value,
-     every output within the bounds the plain body declares, at the widths
-     the main path gives each (`WIDTHS`) and at 1 lane: random inputs at
+   - The twelve fused kernels of fused.cu against their plain bodies, run
+     on the card with the plain leaf and no kernel inside, by canonical
+     value, every output within the bounds the plain body declares, at the
+     widths the paths give each (`WIDTHS`) and at 1 lane: random inputs at
      the pinned bounds (2^262, 2^16) with boundary lanes (low limbs
      2^16 - 1, the value 2^262 - 1, zero), a lane count that is no multiple
-     of the 64-thread block, and an unbatched (18,) operand.
+     of the 64-thread block, and an unbatched (18,) operand; the two-pair
+     Miller bodies also with their constant line triple (ca, cb, cc)
+     unbatched in its real place, between batched operands. Phase 5 adds
+     every further width the paths launched a kernel at.
 4. The main path through the user entry points: `api.batch_sign` makes
    the signatures of `batch` distinct messages under `keys` keys (8 held
    against the host oracle), then `api.batch_verify(mode="adaptive")`
    must accept all; `mode="fused"` must reject the batch with one
    signature swapped; `mode="adaptive"` on a tampered 64-tuple batch must
-   flag exactly the tampered index. Every kernel's launch count is reset
-   just before the adaptive run and read just after: exactly 65
+   flag exactly the tampered index, its independent fallback through the
+   two-pair kernels (65 + 23 launches). Every kernel's launch count is
+   reset just before the adaptive run and read just after: exactly 65
    miller_dbl_body, 23 miller_add_body, 69 expu_step and 24 expu_sq2
-   launches, and some launches of montmul, fq12_mul, fq12_cyc_sq,
-   el_pow_step_mul, el_pow_step_sq and glv_dbl_add (fq12_sq runs only
-   inside the Miller bodies on this path).
-5. Times on a warm repeat (CUDA events): per stage (the weights stage also
+   launches, none of the two-pair bodies, and some launches of montmul,
+   fq12_mul, fq12_cyc_sq, el_pow_step_mul, el_pow_step_sq and glv_dbl_add
+   (fq12_sq runs only inside the Miller bodies on this path).
+5. The independent tier at full width, the first `independent` (4,096)
+   tuples of the main batch: `api.batch_verify(mode="independent")` runs
+   pair2 (the JAX package's default) and must accept all, with exactly 65
+   miller_dbl_body2, 23 miller_add_body2, 0 miller_dbl_body/_add_body, 69
+   expu_step and 24 expu_sq2 launches, and one output template learned
+   per two-pair body. With three signatures tampered it must flag exactly
+   those, and so must the stacked form (the two pairs through the
+   single-pair bodies, `pairing_check(*_independent_pairs(...))`, which the
+   CPU takes).
+   `api.batch_check_public_keys` on 64 key pairs, 3 of them mismatched,
+   must return exactly the expected bools through 65 + 23 two-pair
+   launches. Then every fused kernel is held against its plain body, as in
+   phase 3, at each further lane count that the runs of phases 4 and 5
+   (adaptive, tampered, independent, key check) launched it at.
+6. Times on a warm repeat (CUDA events): per stage (the weights stage also
    split into the GLV ladders and the signature tree-sum, the final
    exponentiation into its easy part, one exp_u, the hard part and is_one),
    end to end, the launch
    counts of a warm run (the same exact counts), per kernel ms at its
-   main-path width beside its bound and its plain version, and the device
+   path's width beside its bound and its plain version, and the device
    busy share (profiler kernel time over wall time) of one miller_dbl_body
-   launch and of one whole exp_u.
+   launch and of one whole exp_u; the independent tier's verifies/s and
+   its stages (hash, Miller, final exp) for both forms, in turns; the
+   kernels the independent tier shares with the adaptive path at the
+   independent run's widths and launch counts.
 
-It prints a kernels JSON line with every kernel the main path launches
-(fq12_sq, checked and timed all the same, is printed on a line of its own),
-and as its last line
+It prints a kernels JSON line with every kernel the two paths launch, each
+with the path its launch count comes from (fq12_sq, checked and timed all
+the same, is printed on a line of its own; the shared kernels' rows for
+the independent path on the line before the card's), and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -52,6 +75,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import inspect
 import json
 import re
 import subprocess
@@ -73,6 +97,12 @@ LEAF_MADS = 2 * 18 * 18  # 32-bit multiply-adds of one CIOS leaf multiply
 MAIN_PATH_LAUNCHES = {"miller_dbl_body": 65, "miller_add_body": 23,
                       "expu_step": 69, "expu_sq2": 24}
 OFF_PATH = {"fq12_sq"}
+# the independent tier on the card (pair2): the same schedule through the
+# two-pair bodies, then the final exponentiation at one lane per tuple
+PAIR2 = ("miller_dbl_body2", "miller_add_body2")
+INDEPENDENT_LAUNCHES = {"miller_dbl_body2": 65, "miller_add_body2": 23,
+                        "miller_dbl_body": 0, "miller_add_body": 0,
+                        "expu_step": 69, "expu_sq2": 24}
 
 
 def fail(msg: str) -> None:
@@ -134,6 +164,9 @@ def ptxas_summary(log: str) -> list[str]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=8192)
+    ap.add_argument("--independent", type=int, default=4096,
+                    help="tuples of the independent-tier phase (at most "
+                         "--batch)")
     ap.add_argument("--keys", type=int, default=16)
     ap.add_argument("--seed", type=int, default=2026)
     args = ap.parse_args()
@@ -160,6 +193,7 @@ def main() -> int:
         from bn254_tpu_torch.kernels import montmul as MK
         from bn254_tpu_torch.pairing import final_exp as FE
         from bn254_tpu_torch.pairing import miller as M
+        from bn254_tpu_torch.pairing import pairing as DP
         from bn254_tpu_torch.utils import convert as CV
     except ImportError as e:
         print(f"chip_smoke: the bn254_tpu_torch package is missing ({e}); "
@@ -168,6 +202,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     B = args.batch
+    NI = min(args.independent, B)
 
     # -- 1. the card ---------------------------------------------------------
     card = card_line()
@@ -203,6 +238,7 @@ def main() -> int:
         return x.to(dev)
 
     max_err = {k: 0 for k in ["montmul", *FK.KERNELS]}
+    checked = {k: set() for k in FK.KERNELS}  # lane counts compared
 
     def check(tag, a, b):
         got = MK.montmul_cuda(a, b)
@@ -254,18 +290,20 @@ def main() -> int:
 
     # each kernel's widest main-path width: the B+1 Miller rows; the first
     # level of the Fq12 product tree; the one-lane final exponentiation; the
-    # hash's B x k square roots; the (H, sig) pair axis of the GLV ladder
+    # hash's B x k square roots; the (H, sig) pair axis of the GLV ladder;
+    # the two-pair bodies at one lane per tuple of the independent tier
     K = C.DEFAULT.k_candidates
     WIDTHS = {"miller_dbl_body": B + 1, "miller_add_body": B + 1,
+              "miller_dbl_body2": NI, "miller_add_body2": NI,
               "expu_step": 1, "expu_sq2": 1, "fq12_mul": (B + 1) // 2,
               "fq12_sq": B + 1, "fq12_cyc_sq": 1, "el_pow_step_mul": B * K,
               "el_pow_step_sq": B * K, "glv_dbl_add": 2 * B}
     rng = np.random.default_rng(args.seed)
     STD, LMAX = L.STD_BOUND, 1 << 16
 
-    def body_inputs(key, n, const_last=0):
+    def body_inputs(key, n, unbatched=()):
         """Random inputs at the pinned bounds on n lanes, boundary lanes
-        first; the last `const_last` arguments unbatched (18,)."""
+        first; the arguments named in `unbatched` as (18,) Els."""
         n_in = FK.arity(key)[0]
         x = rng.integers(0, 1 << 16, size=(n_in, NLIMBS, n), dtype=np.int64)
         x[:, NLIMBS - 1] = rng.integers(0, 126, size=(n_in, n))
@@ -277,10 +315,10 @@ def main() -> int:
             x[:, :, 2] = 0
         args_ = FK.args_from_leaves(
             key, [CV.from_numpy(x[i], STD, LMAX, dev) for i in range(n_in)])
-        k = len(args_) - const_last
-        return args_[:k] + tuple(
+        names = inspect.signature(FK.signature(key)[0]).parameters
+        return tuple(
             L.tree_map(lambda e: L.El(e.arr[:, 0], e.vmax, e.lmax), a)
-            for a in args_[k:])
+            if name in unbatched else a for name, a in zip(names, args_))
 
     def compare(key, tag, args_):
         body = FK.signature(key)[0]
@@ -300,6 +338,7 @@ def main() -> int:
             cg, cw = L.canon(g).arr, L.canon(w).arr
             err = max(err, int((cg - cw).abs().max()) if cg.numel() else 0)
         max_err[key] = max(max_err[key], err)
+        checked[key].add(gl[0].arr[0].numel())
         if err:
             fail(f"{key} differs from its plain body on {tag} by value")
         shape = tuple(gl[0].arr.shape)
@@ -314,13 +353,17 @@ def main() -> int:
             if n != 1:
                 compare(key, "1 lane", body_inputs(key, 1))
             compare(key, "70 lanes (no multiple of 64)", body_inputs(key, 70))
-            n_args = len(FK.signature(key)[1])
-            if n_args > 1:
+            names = tuple(inspect.signature(FK.signature(key)[0]).parameters)
+            if len(names) > 1:
                 compare(key, "an unbatched (18,) last operand",
-                        body_inputs(key, 77, const_last=1))
+                        body_inputs(key, 77, unbatched=names[-1:]))
             else:
                 compare(key, "an unbatched (18,) operand",
-                        body_inputs(key, 1, const_last=1))
+                        body_inputs(key, 1, unbatched=names))
+            if key in PAIR2:
+                compare(key, "the constant line (ca, cb, cc) unbatched (18,) "
+                        f"between batched operands, {NI} lanes",
+                        body_inputs(key, NI, unbatched=("ca", "cb", "cc")))
 
     # -- 4. the main path --------------------------------------------------------
     def reset_counts():
@@ -333,12 +376,38 @@ def main() -> int:
         if exact != MAIN_PATH_LAUNCHES:
             fail(f"{tag}: fused kernel launches {exact}, "
                  f"want {MAIN_PATH_LAUNCHES}")
-        idle = [k for k, v in got.items() if not v and k not in OFF_PATH]
+        off = OFF_PATH | set(PAIR2)  # the two-pair bodies: independent tier
+        idle = [k for k, v in got.items() if not v and k not in off]
         if idle or MK.launches == 0:
             fail(f"{tag}: the main path launched no {idle or 'montmul'} kernel")
-        if any(got[k] for k in OFF_PATH):
-            fail(f"{tag}: unexpected launches of {sorted(OFF_PATH)}")
+        if any(got[k] for k in off):
+            fail(f"{tag}: unexpected launches of {sorted(off)}")
         return {**got, "montmul": MK.launches}
+
+    run_widths = {}  # the lane counts of every launch of the runs below
+
+    @contextlib.contextmanager
+    def widths_recorded(*into):
+        """Each fused kernel launch's lane count, added to every dict of
+        `into` under its key."""
+        launch = FK._launch
+
+        def recorded(key, packed, out):
+            for d in into:
+                d.setdefault(key, set()).add(packed.shape[2])
+            return launch(key, packed, out)
+
+        FK._launch = recorded
+        try:
+            yield
+        finally:
+            FK._launch = launch
+
+    def check_pair2_counts(tag, want=INDEPENDENT_LAUNCHES):
+        got = {k: FK.launches[k] for k in want}
+        if got != want:
+            fail(f"{tag}: fused kernel launches {got}, want {want}")
+        return {**FK.launches, "montmul": MK.launches}
 
     msgs = [rng.bytes(32) for _ in range(B)]
     if len(set(msgs)) != B:
@@ -365,10 +434,11 @@ def main() -> int:
           "the host oracle")
 
     reset_counts()
-    t0 = time.perf_counter()
-    ok = api.batch_verify(msgs, sigs, pks, mode="adaptive")
-    torch.cuda.synchronize()
-    cold_s = time.perf_counter() - t0
+    with widths_recorded(run_widths):
+        t0 = time.perf_counter()
+        ok = api.batch_verify(msgs, sigs, pks, mode="adaptive")
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
     main_launches = check_counts("cold adaptive run")
     if ok.shape != (B,) or not ok.all():
         fail(f"adaptive rejected a valid batch: {int((~ok).sum())} false")
@@ -384,13 +454,102 @@ def main() -> int:
     small, bad_i = min(64, B), min(17, B - 1)
     tampered = list(sigs[:small])
     tampered[bad_i] = api.Signature(HC.g1_mul(sigs[bad_i].point, 2))
-    ok64 = api.batch_verify(msgs[:small], tampered, pks[:small], mode="adaptive")
+    reset_counts()
+    with widths_recorded(run_widths):
+        ok64 = api.batch_verify(msgs[:small], tampered, pks[:small],
+                                mode="adaptive")
     if ok64.tolist() != [i != bad_i for i in range(small)]:
         fail(f"adaptive B={small} flagged {np.flatnonzero(~ok64).tolist()}, "
              f"want [{bad_i}]")
-    print(f"verify adaptive B={small}: exactly index {bad_i} rejected")
+    # the fused pre-check, then the independent fallback through pair2
+    check_pair2_counts(f"adaptive B={small} tampered", {
+        "miller_dbl_body": 65, "miller_add_body": 23,
+        "miller_dbl_body2": 65, "miller_add_body2": 23})
+    print(f"verify adaptive B={small}: exactly index {bad_i} rejected, the "
+          "fallback through 65 + 23 two-pair kernel launches")
 
-    # -- 5. times on a warm repeat ---------------------------------------------------
+    # -- 5. the independent tier (pair2) at full width ---------------------------
+    msgs_i, sigs_i, pks_i = msgs[:NI], sigs[:NI], pks[:NI]
+    ind_widths = {}  # the lane counts of the independent run's launches
+    reset_counts()
+    with widths_recorded(ind_widths, run_widths):
+        t0 = time.perf_counter()
+        ok = api.batch_verify(msgs_i, sigs_i, pks_i, mode="independent")
+        torch.cuda.synchronize()
+        ind_cold_s = time.perf_counter() - t0
+    ind_launches = check_pair2_counts("independent run")
+    if ok.shape != (NI,) or not ok.all():
+        fail(f"independent rejected a valid batch: {int((~ok).sum())} false")
+    for body in (M._dbl_body2_impl, M._add_body2_impl):
+        n_tpl = sum(fn is body for fn, _ in FK._out_structs)
+        if n_tpl != 1:
+            fail(f"{body.__name__} learned {n_tpl} output templates, want 1")
+    print(f"verify independent B={NI} (pair2): all {NI} valid, "
+          f"{ind_cold_s:.2f} s cold, launches {json.dumps(ind_launches)}; "
+          "one output template per two-pair body; lanes per launch "
+          + json.dumps({k: sorted(v) for k, v in ind_widths.items()}))
+
+    bad = sorted({min(5, NI - 1), NI // 2, NI - 1})
+    tampered_i = list(sigs_i)
+    for i in bad:
+        tampered_i[i] = api.Signature(HC.g1_mul(sigs_i[i].point, 2))
+    ok_t = api.batch_verify(msgs_i, tampered_i, pks_i, mode="independent")
+    if np.flatnonzero(~ok_t).tolist() != bad:
+        fail(f"independent flagged {np.flatnonzero(~ok_t).tolist()}, "
+             f"want {bad}")
+
+    def device_tuples(msgs_, sigs_, pks_):
+        """(hx, hy, sx, sy, pqx, pqy) on the card, as api.batch_verify
+        makes them."""
+        return (*hash_to_g1_device(msgs_, None, dev),
+                *CV.g1_batch_to_device_affine([s.point for s in sigs_], dev),
+                *CV.g2_batch_to_device_affine([k.point for k in pks_], dev))
+
+    def stacked_check(msgs_, sigs_, pks_):
+        """The independent tier's stacked form: the two pairs through the
+        single-pair bodies, the pair-axis product, the final exp."""
+        with torch.inference_mode():
+            return DP.pairing_check(*BV._independent_pairs(
+                *device_tuples(msgs_, sigs_, pks_))).cpu().numpy()
+
+    reset_counts()
+    ok_s = stacked_check(msgs_i, tampered_i, pks_i)
+    check_pair2_counts("stacked independent run", {
+        "miller_dbl_body2": 0, "miller_add_body2": 0,
+        "miller_dbl_body": 65, "miller_add_body": 23})
+    if ok_s.tolist() != ok_t.tolist():
+        fail("the stacked independent form disagrees with pair2: flags "
+             f"{np.flatnonzero(~ok_s).tolist()}")
+    print(f"verify independent B={NI}: exactly {bad} rejected by pair2 and "
+          "by the stacked form")
+
+    n_pk, bad_pk = min(64, B), [3, 31, 60]
+    bad_pk = [i for i in bad_pk if i < n_pk]
+    pk_sks = [int.from_bytes(rng.bytes(32), "big") % R for _ in range(n_pk)]
+    pk2s = [Key(HC.g2_mul(HC.G2_ONE, k)) for k in pk_sks]
+    pk1s = [Key(HC.g1_mul(HC.G1_ONE, k + (i in bad_pk)))
+            for i, k in enumerate(pk_sks)]
+    reset_counts()
+    with widths_recorded(run_widths):
+        ok_pk = api.batch_check_public_keys(pk2s, pk1s)
+    check_pair2_counts("batch_check_public_keys", {
+        "miller_dbl_body2": 65, "miller_add_body2": 23,
+        "miller_dbl_body": 0, "miller_add_body": 0})
+    if ok_pk.tolist() != [i not in bad_pk for i in range(n_pk)]:
+        fail(f"batch_check_public_keys flagged "
+             f"{np.flatnonzero(~ok_pk).tolist()}, want {bad_pk}")
+    print(f"batch_check_public_keys: {n_pk} key pairs, exactly {bad_pk} "
+          "mismatched, through 65 + 23 two-pair kernel launches")
+
+    # every fused kernel against its plain body at each further lane count
+    # the runs above launched it at
+    with torch.inference_mode():
+        for key, widths in run_widths.items():
+            for n in sorted(widths - checked[key]):
+                compare(key, f"{n} lanes (a width the paths launched at)",
+                        body_inputs(key, n))
+
+    # -- 6. times on a warm repeat ---------------------------------------------------
     with torch.inference_mode():
         (hx, hy), hash_ms = events_ms(
             torch, lambda: hash_to_g1_device(msgs, None, dev))
@@ -480,7 +639,45 @@ def main() -> int:
             print(f"busy share, {tag}: wall {wall_ms:.3f} ms, device "
                   f"{stages[f'{tag}_device_ms']} ms, {n_ops} aten ops (profiler)")
 
-    # per kernel: ms per launch at the main-path width, bound, plain ms
+    # the independent tier: stages and verifies/s of both forms, in turns
+    def independent_times(form):
+        with torch.inference_mode():
+            (hx, hy), h_ms = events_ms(
+                torch, lambda: hash_to_g1_device(msgs_i, None, dev))
+            sx, sy = CV.g1_batch_to_device_affine(
+                [s.point for s in sigs_i], dev)
+            pqx, pqy = CV.g2_batch_to_device_affine(
+                [k.point for k in pks_i], dev)
+            if form == "pair2":
+                f, m_ms = events_ms(torch, lambda: DP._miller2(
+                    hx, hy, pqx, pqy, sx, sy))
+            else:
+                f, m_ms = events_ms(torch, lambda: T.fq12_retag(
+                    DP.fq12_reduce_mul(M.miller_loop(
+                        *BV._independent_pairs(hx, hy, sx, sy, pqx, pqy)))))
+            one, fe_ms = events_ms(
+                torch, lambda: T.fq12_is_one(FE.final_exp(f)))
+        if form == "pair2":
+            ok, e2e_ms = events_ms(torch, lambda: api.batch_verify(
+                msgs_i, sigs_i, pks_i, mode="independent"))
+        else:
+            ok, e2e_ms = events_ms(
+                torch, lambda: stacked_check(msgs_i, sigs_i, pks_i))
+        if not (bool(one.all()) and ok.all()):
+            fail("a warm independent run rejected the valid batch")
+        return {"hash_ms": h_ms, "miller_ms": m_ms,
+                "final_exp_is_one_ms": fe_ms, "e2e_ms": e2e_ms,
+                "verifies_per_s": NI / (e2e_ms / 1e3)}
+
+    ind_times = {"pair2": [], "stacked": []}
+    for form in ("pair2", "stacked", "stacked", "pair2"):
+        ind_times[form].append(independent_times(form))
+    for form, runs in ind_times.items():
+        print(f"independent B={NI} {form} on {card} (warm, CUDA events, two "
+              "runs): " + json.dumps(
+                  [{k: round(v, 4) for k, v in r.items()} for r in runs]))
+
+    # per kernel: ms per launch at its path's width, bound, plain ms
     kernels = []
     a_c, b_c = a_w.contiguous(), b_w.contiguous()
     _, k_ms = events_ms(torch, lambda: MK.montmul_cuda(a_c, b_c), reps=50)
@@ -491,48 +688,70 @@ def main() -> int:
         "name": "montmul", "route": "cuda",
         "source": "bn254_tpu_torch/kernels/montmul.cu",
         "replaces": "bn254_tpu/kernels/montmul.py:50",
-        "launches": main_launches["montmul"], "max_abs_err": max_err["montmul"],
+        "path": "adaptive", "launches": main_launches["montmul"],
+        "max_abs_err": max_err["montmul"],
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
     })
+    def launch_ms(key, args_):
+        """ms per launch of the bare kernel on these inputs, warm."""
+        packed, _ = FK.pack(L.tree_leaves(args_))
+        out = torch.empty((FK.arity(key)[1], NLIMBS, packed.shape[2]),
+                          dtype=torch.int64, device=dev)
+        FK._launch(key, packed, out)
+        return events_ms(torch, lambda: FK._launch(key, packed, out),
+                         reps=20)[1]
+
+    def kernel_row(key, n, path, n_launches):
+        """The kernels-line row of `key` at n lanes: ms per launch, plain
+        ms, bound."""
+        body = FK.signature(key)[0]
+        n_in, n_out = FK.arity(key)
+        args_ = body_inputs(key, n)
+        leaves = [0]
+        with plain_leaf(leaves):  # leaf multiplies per lane, on 1 lane
+            body(*body_inputs(key, 1))
+        ms = launch_ms(key, args_)
+        _, wrap_ms = events_ms(torch, lambda: FK.fused_op(body, key, *args_),
+                               reps=5)
+        with plain_leaf():
+            _, plain_ms = events_ms(torch, lambda: body(*args_), reps=3)
+        t_bytes = (n_in + n_out) * NLIMBS * 8 * n / HBM_BYTES_PER_S * 1e3
+        t_ops = leaves[0] * LEAF_MADS * n / INT32_MAD_PER_S * 1e3
+        print(f"kernel {key} ({path} path): {n} lanes, {leaves[0]} leaf "
+              f"multiplies per lane, {ms:.4f} ms per launch ({wrap_ms:.4f} ms "
+              f"through fused_op), plain {plain_ms:.3f} ms, bound "
+              f"{max(t_bytes, t_ops):.6f} ms")
+        return {
+            "name": key, "route": "cuda",
+            "source": "bn254_tpu_torch/kernels/fused.cu",
+            "replaces": FK.KERNELS[key].replaces, "path": path,
+            "launches": n_launches, "max_abs_err": max_err[key], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None,
+        }
+
     off_path = []  # measured and printed, but not kernels of the main path
+    # the kernels the independent run shares with the adaptive path, at the
+    # widest width and the launch count of the independent run
+    shared = []
     with torch.inference_mode():
-        for key, kern in FK.KERNELS.items():
-            body = FK.signature(key)[0]
-            n_in, n_out = FK.arity(key)
-            n = WIDTHS[key]
-            args_ = body_inputs(key, n)
-            leaves = [0]
-            with plain_leaf(leaves):  # leaf multiplies per lane, on 1 lane
-                body(*body_inputs(key, 1))
-            packed, _ = FK.pack(L.tree_leaves(args_))
-            out = torch.empty((n_out, NLIMBS, n), dtype=torch.int64, device=dev)
-            FK._launch(key, packed, out)
-            _, ms = events_ms(torch, lambda: FK._launch(key, packed, out),
-                              reps=20)
-            _, wrap_ms = events_ms(torch, lambda: FK.fused_op(body, key, *args_),
-                                   reps=5)
-            with plain_leaf():
-                _, plain_ms = events_ms(torch, lambda: body(*args_), reps=3)
-            t_bytes = (n_in + n_out) * NLIMBS * 8 * n / HBM_BYTES_PER_S * 1e3
-            t_ops = leaves[0] * LEAF_MADS * n / INT32_MAD_PER_S * 1e3
-            (off_path if key in OFF_PATH else kernels).append({
-                "name": key, "route": "cuda",
-                "source": "bn254_tpu_torch/kernels/fused.cu",
-                "replaces": kern.replaces, "launches": main_launches[key],
-                "max_abs_err": max_err[key], "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": None,
-            })
-            print(f"kernel {key}: {n} lanes, {leaves[0]} leaf multiplies per "
-                  f"lane, {ms:.4f} ms per launch ({wrap_ms:.4f} ms through "
-                  f"fused_op), plain {plain_ms:.3f} ms, bound "
-                  f"{max(t_bytes, t_ops):.6f} ms")
+        for key in FK.KERNELS:
+            if key in PAIR2:
+                kernels.append(kernel_row(key, WIDTHS[key], "independent",
+                                          ind_launches[key]))
+                continue
+            (off_path if key in OFF_PATH else kernels).append(
+                kernel_row(key, WIDTHS[key], "adaptive", main_launches[key]))
+            if key in ind_widths:
+                shared.append(kernel_row(key, max(ind_widths[key]),
+                                         "independent", ind_launches[key]))
     for k in off_path:
         print(f"kernel {k['name']} is off the main path (0 launches there), "
               f"so not on the kernels line: {json.dumps(k)}")
+    print(json.dumps({"independent_path_kernels": shared}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

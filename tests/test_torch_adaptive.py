@@ -19,11 +19,11 @@ from bn254_tpu.host import curve as HC
 from bn254_tpu.utils import convert as JCV
 from bn254_tpu_torch.dist import batch_verify as BV
 from bn254_tpu_torch.utils import convert as CV
+from test_torch_independent import EXPECTED  # signature 2 tampered
 
 B = 4
 BITS = 16
 PAIRS = [(1, 0), (0x5A, 0xC3), (0x01, 0xFF), (0xE7, 0x00)]
-EXPECTED = [True, True, False, True]  # signature 2 tampered
 
 
 def parts(e):

@@ -6,7 +6,7 @@ carry-across functions (`utils.convert.from_numpy` and
 `np.array_equal`, together with the (vmax, lmax) bounds, unless a test says
 "by value":
 
-* the ten plain bodies against JAX's same `_impl` at B=3, inputs at the
+* the twelve plain bodies against JAX's same `_impl` at B=3, inputs at the
   pinned / retagged bounds (2^262, 2^16);
 * `_miller_loop_unrolled(naf=(1, -1))`, Frobenius steps included,
   `_exp_u_unrolled` over one zero and one nonzero window, `_pow_fixed_fused`
@@ -51,6 +51,8 @@ STD = L.STD_BOUND
 JAX_BODIES = {
     "miller_dbl_body": JM._dbl_body_impl,
     "miller_add_body": JM._add_body_impl,
+    "miller_dbl_body2": JM._dbl_body2_impl,
+    "miller_add_body2": JM._add_body2_impl,
     "expu_step": JFE._expu_step_impl,
     "expu_sq2": JFE._expu_sq2_impl,
     "fq12_mul": JT._fq12_mul_impl,

@@ -7,12 +7,14 @@ BN254_CHECK_BOUNDS defined, every CIOS operand limb is checked < 2^16,
 every Fp result < 2p with limbs < 2^15, and every loaded value < 2^270.
 Each body is held against the port's plain body (what CPU tensors run) on 5
 lanes, boundary lanes included: by canonical value, and every output within
-the bounds the plain body declares. The shared leaf `cios` is held bit for
+the bounds the plain body declares; the two-pair Miller bodies also with
+their constant line triple unbatched. The shared leaf `cios` is held bit for
 bit against `montmul_plain`. This is the only run of the kernels'
 arithmetic off the card.
 """
 
 import ctypes
+import inspect
 import pathlib
 import shutil
 import subprocess
@@ -32,6 +34,7 @@ from bn254_tpu_torch.kernels import fused as FK
 from bn254_tpu_torch.kernels import montmul as MK
 from bn254_tpu_torch.pairing import final_exp as FE
 from bn254_tpu_torch.pairing import miller as M
+from bn254_tpu_torch.pairing import precompute as PC
 from bn254_tpu_torch.utils import convert as CV
 
 SRC = pathlib.Path(FK.__file__).resolve().parent / "fused.cu"
@@ -142,14 +145,11 @@ def test_host_glv_step_edge_cases(host_lib):
     assert z[0] == sel_z[0]  # acc at infinity: the sum is sel
 
 
-def test_loops_through_the_host_kernels(host_lib, monkeypatch):
-    """The CUDA path of `fused_op` (packing, launch counts, learned bounds)
-    with the host build standing in for the card: the unrolled Miller loop
-    on a 3-digit schedule (both signs, a zero digit, both Frobenius steps),
-    exp_u on 4 windows (two zero, two nonzero) with its table, the easy
-    part, a full p - 2 power and a 4-step GLV ladder, by value against the
-    plain forms; the full schedules' launches are counted on the card by
-    chip_smoke.py and on the CPU by tests/test_torch_verify.py."""
+@pytest.fixture()
+def host_card(host_lib, monkeypatch):
+    """`fused_op`'s CUDA path (packing, launch counts, learned bounds) with
+    the host build standing in for the card; returns `counted(**want)`,
+    which compares and resets the nonzero launch counts."""
     def launch(key, packed, out):
         fn = host_fn(host_lib, key)
         assert fn(packed.data_ptr(), out.data_ptr(), packed.shape[2]) == 0
@@ -164,6 +164,72 @@ def test_loops_through_the_host_kernels(host_lib, monkeypatch):
         FK.launches.update(dict.fromkeys(FK.launches, 0))
         return got == want
 
+    return counted
+
+
+@pytest.mark.parametrize("key", ["miller_dbl_body2", "miller_add_body2"])
+def test_host_pair2_body_with_unbatched_constants(host_card, key):
+    """The constant line triple (ca, cb, cc) as unbatched (18,) Els between
+    batched operands, as the pair2 loop passes them: each broadcasts in its
+    own position."""
+    body, _ = FK.signature(key)
+    names = list(inspect.signature(body).parameters)
+    rng = np.random.default_rng(sorted(FK.KERNELS).index(key) + 51)
+    args = list(FK.args_from_leaves(key, [
+        CV.from_numpy(x, *PINNED) for x in boundary_limbs(rng, FK.arity(key)[0])]))
+    for j, name in enumerate(("ca", "cb", "cc")):
+        i = names.index(name)
+        args[i] = L.tree_map(lambda e: L.El(e.arr[:, 3 + j % 2], e.vmax, e.lmax),
+                             args[i])
+        assert args[i].c0.arr.shape == (NLIMBS,)
+    got = FK.fused_op(body, key, *args)
+    assert host_card(**{key: 1})
+    with FK.kernel_mode():
+        want = body(*args)
+    for g, w in zip(L.tree_leaves(got), L.tree_leaves(want)):
+        assert g.arr.shape == (NLIMBS, N) and (g.vmax, g.lmax) == (w.vmax, w.lmax)
+        assert int(g.arr.max()) < 1 << 15 and int(g.arr.min()) >= 0
+        assert ([int(v) for v in L.to_ints(g)]
+                == [int(v) % P for v in L.to_ints(w)])
+
+
+def test_pair2_loop_through_the_host_kernels(host_card, monkeypatch):
+    """The pair2 loop on a 3-digit schedule (both signs, a zero digit, both
+    Frobenius steps), one launch per digit, by value against the product of
+    the two pairs' plain scan-form Miller values;
+    each body learns ONE output template: the pinned constants carry the
+    batched operands' (2^262, 2^16)."""
+    monkeypatch.setattr(FK, "_out_structs", {})
+    g1 = [HC.g1_mul(HC.G1_ONE, 5 + i) for i in range(4)]
+    g2 = [HC.g2_mul(HC.G2_ONE, 9 + i) for i in range(2)]
+    hx, hy = CV.g1_batch_to_device_affine(g1[:2])
+    sx, sy = CV.g1_batch_to_device_affine(g1[2:])
+    qx, qy = CV.g2_batch_to_device_affine(g2)
+    naf = (1, 0, -1)
+    coeffs = PC.g2_line_coeffs(HC.g2_to_affine(HC.g2_neg(HC.G2_ONE)), naf=naf)
+    f = M._miller_loop_pair2_unrolled(hx, hy, qx, qy, sx, sy, coeffs, naf=naf)
+    assert host_card(miller_dbl_body2=3, miller_add_body2=4)
+    ngx, ngy = CV.g2_const_affine(HC.g2_neg(HC.G2_ONE), (2,))
+    with FK.kernel_mode():  # the two pairs stacked through the scan form
+        both = M._miller_loop_scan(
+            L.stack([hx, sx]), L.stack([hy, sy]), T.fq2_stack([qx, ngx]),
+            T.fq2_stack([qy, ngy]), naf=naf)
+        f0, f1 = (L.tree_map(lambda e: L.El(e.arr[:, i], e.vmax, e.lmax),
+                             both) for i in range(2))
+        assert bool(T.fq12_eq(f, T.fq12_mul(f0, f1)).all())
+    learned = [fn.__name__ for fn, _ in FK._out_structs]
+    assert sorted(learned) == ["_add_body2_impl", "_dbl_body2_impl"]
+
+
+def test_loops_through_the_host_kernels(host_card):
+    """The CUDA path of `fused_op` with the host build standing in for the
+    card: the unrolled Miller loop on a 3-digit schedule (both signs, a zero
+    digit, both Frobenius steps), exp_u on 4 windows (two zero, two nonzero)
+    with its table, the easy part, a full p - 2 power and a 4-step GLV
+    ladder, by value against the plain forms; the full schedules' launches
+    are counted on the card by chip_smoke.py and on the CPU by
+    tests/test_torch_verify.py."""
+    counted = host_card
     g1 = [HC.g1_mul(HC.G1_ONE, 5 + i) for i in range(2)]
     g2 = [HC.g2_mul(HC.G2_ONE, 9 + i) for i in range(2)]
     px, py = CV.g1_batch_to_device_affine(g1)

@@ -100,11 +100,11 @@ def test_fused_tier_matches_jax(batch):
 def test_kernel_composition_matches_jax(batch, monkeypatch):
     """Kernels forced on (`tower._on_card`): the fused and adaptive tiers
     run the card's composition (every Fq12 op, power, GLV ladder step,
-    Miller digit and exp_u window through `fused_op`) with the plain
-    bodies, and give JAX's answers. JAX's adaptive tier on the tampered
-    batch rejects in its fused check (above) and gives its fallback's bools,
-    which tests/test_torch_independent.py holds to EXPECTED against
-    `verify_batch_independent_staged`."""
+    Miller digit and exp_u window through `fused_op`, the fallback through
+    pair2) with the plain bodies, and give JAX's answers. JAX's adaptive
+    tier on the tampered batch rejects in its fused check (above) and gives
+    its fallback's bools, which tests/test_torch_independent.py holds to
+    EXPECTED against `verify_batch_independent_staged`."""
     from bn254_tpu_torch.kernels import fused as FK
     from test_torch_independent import EXPECTED
 
@@ -121,6 +121,7 @@ def test_kernel_composition_matches_jax(batch, monkeypatch):
     assert bool(BV.verify_batch_fused(*to_port(*good), pw))
     assert calls == {
         "miller_dbl_body": 65, "miller_add_body": 23,  # NAF + 2 Frobenius
+        "miller_dbl_body2": 0, "miller_add_body2": 0,  # independent tier only
         "expu_step": 69, "expu_sq2": 24,  # 3 exp_u x 23 / 8 windows
         # the B+1 = 5 row product tree 3, the easy part 2, three exp_u
         # tables 3, the hard part 13; the tables 3 and the hard part 4
@@ -132,7 +133,9 @@ def test_kernel_composition_matches_jax(batch, monkeypatch):
     }
     got = BV.verify_batch_adaptive(*to_port(*tampered), weights=pw)
     assert got.tolist() == EXPECTED
-    assert calls["miller_dbl_body"] == 3 * 65  # + fused + independent
+    # + the fused check; its independent fallback runs pair2
+    assert calls["miller_dbl_body"] == 2 * 65
+    assert (calls["miller_dbl_body2"], calls["miller_add_body2"]) == (65, 23)
 
 
 def test_weight_forms_are_validated():
