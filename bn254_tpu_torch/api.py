@@ -46,6 +46,20 @@ def _scalar(k) -> int:
     return int(getattr(k, "scalar", k))
 
 
+def _config(config):
+    """`config`, or `config.DEFAULT` when None. The loop form is read from
+    `config.DEFAULT` at each dispatch site, as in the JAX package, so a
+    passed config may not ask for another one."""
+    from . import config as CFG
+
+    cfg = config or CFG.DEFAULT
+    if cfg.unroll_static_loops != CFG.DEFAULT.unroll_static_loops:
+        raise ValueError(
+            "unroll_static_loops is read from config.DEFAULT (environment "
+            "BN254_DISABLE_UNROLL), not from a passed config")
+    return cfg
+
+
 @torch.inference_mode()
 def batch_sign(messages: list[bytes], private_keys, config=None,
                device=None) -> list[Signature]:
@@ -55,9 +69,7 @@ def batch_sign(messages: list[bytes], private_keys, config=None,
     batched SHA-256 try-and-increment hash, a batched 256-step scalar
     ladder and one batched affine conversion.
     """
-    from . import config as CFG
-
-    cfg = config or CFG.DEFAULT
+    cfg = _config(config)
     if len(messages) != len(private_keys):
         raise ValueError("one private key per message")
     dev = resolve_device(device)
@@ -87,9 +99,7 @@ def batch_verify(messages: list[bytes], signatures, public_keys,
     weights: explicit RLC weights (GlvWeights, PlainWeights or ints);
     None draws fresh cryptographic ones per `config.glv_weights`.
     """
-    from . import config as CFG
-
-    cfg = config or CFG.DEFAULT
+    cfg = _config(config)
     n = len(messages)
     if len(signatures) != n or len(public_keys) != n:
         raise ValueError("one signature and one public key per message")

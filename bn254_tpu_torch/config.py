@@ -1,9 +1,9 @@
 """Configuration of the batch-verification pipeline.
 
 The knobs this package honours: the hash-search width, the RLC weight
-width and the weight form. Environment variables give the defaults
-(`Config.from_env`), explicit overrides win. There is no switch that
-turns the CUDA kernel off: a CUDA tensor always goes through it.
+width, the weight form and the loop form. Environment variables give the
+defaults (`Config.from_env`), explicit overrides win. There is no switch
+that turns the CUDA kernels off: a CUDA tensor always goes through them.
 """
 
 from __future__ import annotations
@@ -28,6 +28,17 @@ class Config:
     # ~2^-rlc_bits soundness with half the weight-ladder steps.
     glv_weights: bool = True
 
+    # Unroll the Miller loop, exp_u, the fixed powers and the GLV ladder
+    # over their STATIC schedules on the card (one fused kernel per digit,
+    # window or step; the independent tier through pair2). False runs
+    # their scan forms there: the Miller loop through the per-op kernels
+    # fq12_sq, g2_dbl_step, g2_add_step and fq12_mul_line, exp_u through
+    # the standalone Fq12 ops, the powers and the ladder leaf by leaf, the
+    # independent tier stacked. Read at each dispatch site from DEFAULT
+    # only (as in the JAX package): set it with BN254_DISABLE_UNROLL or by
+    # replacing DEFAULT; `api` refuses a passed config that differs here.
+    unroll_static_loops: bool = True
+
     @classmethod
     def from_env(cls, **overrides) -> "Config":
         """Defaults from the environment, then explicit overrides."""
@@ -38,6 +49,8 @@ class Config:
             env["rlc_bits"] = int(os.environ["BN254_RLC_BITS"])
         if os.environ.get("BN254_DISABLE_GLV"):
             env["glv_weights"] = False
+        if os.environ.get("BN254_DISABLE_UNROLL"):
+            env["unroll_static_loops"] = False
         env.update(overrides)
         return cls(**env)
 

@@ -1,10 +1,11 @@
 """GLV endomorphism Shamir ladder for RLC batch-verification weights.
 
 Counterpart of `bn254_tpu/curve/glv.py`, with its unrolled form (one fused
-kernel launch per ladder step, on CUDA tensors) and its scan form (CPU
-tensors). Weights are drawn directly in GLV form w = a + λ·b (mod r) with
-a, b uniform (bits//2)-bit, where λ is the eigenvalue of φ(x, y) = (β·x, y)
-on G1. Then
+kernel launch per ladder step, on CUDA tensors under
+`config.unroll_static_loops`) and its scan form (otherwise, leaf by leaf).
+Weights are drawn directly in GLV form w = a + λ·b (mod r) with a, b
+uniform (bits//2)-bit, where λ is the eigenvalue of φ(x, y) = (β·x, y) on
+G1. Then
 
     [w]P = [a]P + [b]φ(P)
 
@@ -186,12 +187,14 @@ def shamir_scalar_mul(p: J.JPoint, w: GlvWeights) -> J.JPoint:
     """[a]P + [b]φ(P) by a (bits//2)-step MSB-first Shamir ladder.
 
     The 2-bit table index is data (a masked select per step), the schedule
-    is static. On CUDA tensors each step is one "glv_dbl_add" kernel
-    launch (`_shamir_unrolled`); on CPU tensors the JAX package's scan
-    form as a Python loop (`_shamir_scan`).
+    is static. On CUDA tensors under `config.unroll_static_loops` each step
+    is one "glv_dbl_add" kernel launch (`_shamir_unrolled`); otherwise the
+    JAX package's scan form as a Python loop (`_shamir_scan`).
     """
+    from .. import config as C
+
     table = _table(p)
-    if T._use_kernels(p.x, w.a):
+    if C.DEFAULT.unroll_static_loops and T._use_kernels(p.x, w.a):
         return _shamir_unrolled(table, w, w.half_bits)
     return _shamir_scan(table, w, w.half_bits)
 

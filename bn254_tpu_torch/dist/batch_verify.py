@@ -5,8 +5,9 @@ Counterpart of `bn254_tpu/dist/batch_verify.py`, single-device tiers only:
 1. `verify_batch_independent` — N independent (H(m), sig, pk) tuples:
    each tuple is its own 2-pair product check with its own final
    exponentiation. On the card (`_use_pair2`) the shared-squaring two-pair
-   Miller loop with -G2::one's precomputed lines; on the CPU the pair axis
-   stacked in front of the batch axis.
+   Miller loop with -G2::one's precomputed lines; on the CPU, and on the
+   card with `config.unroll_static_loops` off, the pair axis stacked in
+   front of the batch axis.
 2. `verify_batch_fused` — N tuples fused into ONE pairing-product check
    with random linear-combination weights:
    prod_i e([w_i]H_i, pk_i) * e(-sum_i [w_i]sig_i, G2) == 1, a single
@@ -73,9 +74,12 @@ def verify_batch_independent(hx, hy, sx, sy, pqx, pqy) -> torch.Tensor:
 
 def _use_pair2(hx, sx, pqx) -> bool:
     """The shared-squaring constant-Q two-pair Miller loop
-    (`pairing.pairing_check2`): on the kernels (CUDA tensors), as the JAX
-    package takes it on its fused path by default."""
-    return T._use_kernels(hx, sx, pqx.c0)
+    (`pairing.pairing_check2`): on the kernels (CUDA tensors) under
+    `config.unroll_static_loops`, as the JAX package takes it on its fused
+    path by default."""
+    from .. import config as C
+
+    return C.DEFAULT.unroll_static_loops and T._use_kernels(hx, sx, pqx.c0)
 
 
 # ---------------------------------------------------------------------------

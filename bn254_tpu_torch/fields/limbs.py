@@ -433,18 +433,20 @@ def elmap(fn, a: El, vmax: int | None = None, lmax: int | None = None) -> El:
 def pow_fixed(a: El, exponent: int) -> El:
     """a^exponent (Montgomery domain), static exponent.
 
-    On CUDA tensors `_pow_fixed_fused`: one fused kernel launch per 3-bit
-    window. Elsewhere square-and-multiply as a Python loop over the
-    exponent's static bits (the JAX package's scan form). A zero bit keeps
-    the square, as the scan's select does, so skipping its multiply gives
-    the same limbs."""
+    On CUDA tensors under `config.unroll_static_loops` `_pow_fixed_fused`:
+    one fused kernel launch per 3-bit window. Otherwise square-and-multiply
+    as a Python loop over the exponent's static bits (the JAX package's
+    scan form), leaf by leaf through `mont_mul`. A zero bit keeps the
+    square, as the scan's select does, so skipping its multiply gives the
+    same limbs."""
     if exponent == 0:
         return mont_one(a.batch_shape, a.device)
     base = retag(norm_limbs(a), STD_BOUND)
     bits = bin(exponent)[2:]
+    from .. import config as C
     from . import tower as T
 
-    if T._use_kernels(base):
+    if C.DEFAULT.unroll_static_loops and T._use_kernels(base):
         return _pow_fixed_fused(base, bits)
     res = base
     for bit in bits[1:]:

@@ -1,5 +1,5 @@
-// Fused BN254 kernels for Hopper (sm_90a): tower ops, Miller-loop and exp_u
-// steps, pow windows and GLV ladder steps.
+// Fused BN254 kernels for Hopper (sm_90a): tower ops, Miller-loop digits and
+// step ops, exp_u steps, pow windows and GLV ladder steps.
 //
 // Each kernel runs one whole straight-line body for every lane, replacing
 // one Pallas kernel of bn254_tpu/kernels/fused.py:fused_op:
@@ -17,6 +17,9 @@
 //   el_pow_step_mul  fields/limbs.py:783               2 -> 1
 //   el_pow_step_sq   fields/limbs.py:790               1 -> 1
 //   glv_dbl_add      curve/glv.py:213                  6 -> 3
+//   fq12_mul_line    pairing/miller.py:90             18 -> 12
+//   g2_dbl_step      pairing/miller.py:125             8 -> 12
+//   g2_add_step      pairing/miller.py:167            12 -> 12
 //
 // Interface (kernels/fused.py): one contiguous (n_in, 18, n) int64 input, one
 // (n_out, 18, n) int64 output, Els in the plain body's tree order (an Fq12
@@ -29,8 +32,12 @@
 // for limb (chip_smoke.py and tests/test_torch_fused_host.py compare so).
 //
 // Design: one thread per lane, 64-thread blocks (8,193 Miller lanes fill
-// 129 blocks, about one per SM; the two-pair bodies of the independent tier
-// at 4,096 tuples fill 64, half the SMs). The Fq12 accumulator and the temporaries
+// 129 blocks, about one per SM, for the digit bodies and for the scan form's
+// step ops alike; the two-pair bodies of the independent tier at 4,096
+// tuples fill 64, half the SMs). The step ops (g2_dbl_step, g2_add_step,
+// fq12_mul_line) are the same device functions the digit bodies chain, one
+// launch each, so the scan form pays a launch and an HBM round trip of f, T
+// and the line per step. The Fq12 accumulator and the temporaries
 // live in local memory; the Fq2-level functions and the leaf are not
 // inlined, which keeps the nvcc build in seconds. The limb layout makes
 // each lane's limb loads coalesced across a warp.
@@ -249,6 +256,50 @@ BN_FN BN_INLINE void lane_glv_dbl_add(const int64_t* in, int64_t* out,
   store_els(out, 0, els(o), 3, n, e);
 }
 
+// inputs (f, a, b, c) -> f * (a + b w + c v w)
+BN_FN BN_INLINE void lane_fq12_mul_line(const int64_t* in, int64_t* out,
+                                        int64_t n, int64_t e) {
+  Fq12 f, o;
+  Fq2 a, b, c;
+  load_els(els(f), 12, 0, in, n, e);
+  load_els(els(a), 2, 12, in, n, e);
+  load_els(els(b), 2, 14, in, n, e);
+  load_els(els(c), 2, 16, in, n, e);
+  fq12_mul_line(o, f, a, b, c);
+  store_els(out, 0, els(o), 12, n, e);
+}
+
+// inputs (t, xp, yp) -> (2t, its tangent line (a, b, c))
+BN_FN BN_INLINE void lane_g2_dbl_step(const int64_t* in, int64_t* out,
+                                      int64_t n, int64_t e) {
+  ProjG2 t, to;
+  Line ln;
+  Fp xp, yp;
+  load_els(els(t), 6, 0, in, n, e);
+  load_els(&xp, 1, 6, in, n, e);
+  load_els(&yp, 1, 7, in, n, e);
+  dbl_step(to, ln, t, xp, yp);
+  store_els(out, 0, els(to), 6, n, e);
+  store_els(out, 6, els(ln), 6, n, e);
+}
+
+// inputs (t, qx, qy, xp, yp) -> (t + q, its chord line (a, b, c))
+BN_FN BN_INLINE void lane_g2_add_step(const int64_t* in, int64_t* out,
+                                      int64_t n, int64_t e) {
+  ProjG2 t, to;
+  Line ln;
+  Fq2 qx, qy;
+  Fp xp, yp;
+  load_els(els(t), 6, 0, in, n, e);
+  load_els(els(qx), 2, 6, in, n, e);
+  load_els(els(qy), 2, 8, in, n, e);
+  load_els(&xp, 1, 10, in, n, e);
+  load_els(&yp, 1, 11, in, n, e);
+  add_step(to, ln, t, qx, qy, xp, yp);
+  store_els(out, 0, els(to), 6, n, e);
+  store_els(out, 6, els(ln), 6, n, e);
+}
+
 }  // namespace bn254
 
 #ifdef __CUDACC__
@@ -318,3 +369,6 @@ BN254_FUSED_KERNEL(fq12_cyc_sq)
 BN254_FUSED_KERNEL(el_pow_step_mul)
 BN254_FUSED_KERNEL(el_pow_step_sq)
 BN254_FUSED_KERNEL(glv_dbl_add)
+BN254_FUSED_KERNEL(fq12_mul_line)
+BN254_FUSED_KERNEL(g2_dbl_step)
+BN254_FUSED_KERNEL(g2_add_step)

@@ -1,5 +1,5 @@
-"""Fused bodies: one CUDA kernel launch per tower op, Miller digit, exp_u
-window, pow window or GLV ladder step.
+"""Fused bodies: one CUDA kernel launch per tower op, Miller digit or step
+op, exp_u window, pow window or GLV ladder step.
 
 Counterpart of `bn254_tpu/kernels/fused.py:fused_op`. `fused_op(fn, key,
 *args)` runs `fn(*args)`, a plain body over El trees (`tower._fq12_mul_impl`,
@@ -79,6 +79,13 @@ KERNELS = {
                              "bn254_tpu/fields/limbs.py:790"),
     "glv_dbl_add": Kernel("bn254_glv_dbl_add", "curve.glv:_dbl_add_body_impl",
                           "bn254_tpu/curve/glv.py:213"),
+    "fq12_mul_line": Kernel("bn254_fq12_mul_line",
+                            "pairing.miller:_fq12_mul_line_impl",
+                            "bn254_tpu/pairing/miller.py:90"),
+    "g2_dbl_step": Kernel("bn254_g2_dbl_step", "pairing.miller:_dbl_step_impl",
+                          "bn254_tpu/pairing/miller.py:125"),
+    "g2_add_step": Kernel("bn254_g2_add_step", "pairing.miller:_add_step_impl",
+                          "bn254_tpu/pairing/miller.py:167"),
 }
 
 # the kernels' input contract: values < 2^270, limbs < 2^26 (the limb

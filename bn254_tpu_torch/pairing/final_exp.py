@@ -4,8 +4,10 @@ Counterpart of `bn254_tpu/pairing/final_exp.py` in the form its batch
 verifiers run: the staged pipeline `final_exp_staged` (easy part, three
 u-exponentiations, hard-part combination, each stage retagging its own
 output). `exp_u` has the JAX package's two forms: unrolled, one fused CUDA
-kernel per window (kernels/fused.py; the form CUDA tensors take), and the
-scan form (CPU tensors). The JAX package's replicated-block trick for
+kernel per window (kernels/fused.py; the form CUDA tensors take under
+`config.unroll_static_loops`), and the scan form (CPU tensors, and CUDA
+tensors with the knob off: two `fq12_cyc_sq` and one `fq12_mul` launch per
+window). The JAX package's replicated-block trick for
 scalar inputs (`final_exp_wide`) works around slow batch-1 programs on the
 TPU and is not carried over: a scalar final exponentiation here runs on
 (18,) tensors.
@@ -88,11 +90,14 @@ def _exp_u_scan(f: Fq12, window_digits=None) -> Fq12:
 def exp_u(f: Fq12, window_digits=None) -> Fq12:
     """f^u for a CYCLOTOMIC f (all final-exp call sites qualify): 2-bit
     windowed square-and-multiply over the fixed bits of u. Unrolled into
-    fused kernels on CUDA tensors, the scan form on CPU tensors.
+    fused kernels on CUDA tensors under `config.unroll_static_loops`, the
+    scan form otherwise.
 
     window_digits: schedule override (tests use a truncated prefix).
     """
-    if T._use_kernels(*L.tree_leaves(f)):
+    from .. import config as C
+
+    if C.DEFAULT.unroll_static_loops and T._use_kernels(*L.tree_leaves(f)):
         return _exp_u_unrolled(f, window_digits)
     return _exp_u_scan(f, window_digits)
 

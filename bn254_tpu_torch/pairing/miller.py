@@ -1,11 +1,14 @@
 """Optimal-ate Miller loop for BN254.
 
 Counterpart of `bn254_tpu/pairing/miller.py`: its step bodies
-(`_dbl_step_impl`, `_add_step_impl`, `_fq12_mul_line_impl`), its bound
-pins, its unrolled form `_miller_loop_unrolled` (one fused CUDA kernel per
-digit, kernels/fused.py; the form CUDA tensors take), its scan form
+(`_dbl_step_impl`, `_add_step_impl`, `_fq12_mul_line_impl`) with their
+dispatchers (`_dbl_step`, `_add_step`, `fq12_mul_line`: one fused CUDA
+kernel each on the card, kernels/fused.py), its bound pins, its unrolled
+form `_miller_loop_unrolled` (one fused kernel per digit; the form CUDA
+tensors take under `config.unroll_static_loops`), its scan form
 `_miller_loop_scan`, here a Python loop over the static NAF schedule of
-6u + 2 (the form CPU tensors take), and the shared-squaring two-pair form
+6u + 2 (CPU tensors, and CUDA tensors with the knob off, one kernel per
+step op), and the shared-squaring two-pair form
 `_miller_loop_pair2_unrolled` with its bodies `_dbl_body2_impl` and
 `_add_body2_impl` (the independent tier on the card, pairing.pairing_check2).
 
@@ -83,7 +86,7 @@ def _fq6_mul_by_0(g: Fq6, s0: Fq2) -> Fq6:
     return Fq6(p0, p1, p2)
 
 
-def fq12_mul_line(f: Fq12, a: Fq2, b: Fq2, c: Fq2) -> Fq12:
+def _fq12_mul_line_impl(f: Fq12, a: Fq2, b: Fq2, c: Fq2) -> Fq12:
     """f * (A + B w + C v w) — Karatsuba: r0 = f0 A + v f1 (B + C v),
     r1 = (f0+f1)(A+B + C v) - f0 A - f1(B + C v)."""
     t0 = _fq6_mul_by_0(f.c0, a)
@@ -95,12 +98,26 @@ def fq12_mul_line(f: Fq12, a: Fq2, b: Fq2, c: Fq2) -> Fq12:
     return T.fq12_squeeze(Fq12(r0, r1))
 
 
+def fq12_mul_line(f: Fq12, a: Fq2, b: Fq2, c: Fq2) -> Fq12:
+    """Sparse 034 line fold; one "fq12_mul_line" kernel launch on the card."""
+    if T._use_kernels(*L.tree_leaves(f), a.c0, b.c0, c.c0):
+        return FK.fused_op(_fq12_mul_line_impl, "fq12_mul_line", f, a, b, c)
+    return _fq12_mul_line_impl(f, a, b, c)
+
+
 # ---------------------------------------------------------------------------
 # Miller loop steps
 # ---------------------------------------------------------------------------
 
 
-def dbl_step(t: ProjG2, xp, yp):
+def _dbl_step(t: ProjG2, xp: L.El, yp: L.El):
+    """Tangent-line doubling; one "g2_dbl_step" kernel launch on the card."""
+    if T._use_kernels(t.x.c0, t.y.c0, t.z.c0, xp, yp):
+        return FK.fused_op(_dbl_step_impl, "g2_dbl_step", t, xp, yp)
+    return _dbl_step_impl(t, xp, yp)
+
+
+def _dbl_step_impl(t: ProjG2, xp: L.El, yp: L.El):
     """Tangent-line doubling. Returns (2T, (A, B, C))."""
     X, Y, Z = t
     xx = T.fq2_sq(X)  # X^2
@@ -133,7 +150,15 @@ def dbl_step(t: ProjG2, xp, yp):
     return ProjG2(x_out, y_out, z_out), (a, b, c)
 
 
-def add_step(t: ProjG2, qx: Fq2, qy: Fq2, xp, yp):
+def _add_step(t: ProjG2, qx: Fq2, qy: Fq2, xp: L.El, yp: L.El):
+    """Chord-line mixed addition; one "g2_add_step" kernel launch on the
+    card."""
+    if T._use_kernels(t.x.c0, qx.c0, qy.c0, xp, yp):
+        return FK.fused_op(_add_step_impl, "g2_add_step", t, qx, qy, xp, yp)
+    return _add_step_impl(t, qx, qy, xp, yp)
+
+
+def _add_step_impl(t: ProjG2, qx: Fq2, qy: Fq2, xp: L.El, yp: L.El):
     """Chord-line mixed addition T + Q (Q affine). Returns (T+Q, (A,B,C))."""
     X, Y, Z = t
     theta = T.fq2_sub(Y, T.fq2_mul(qy, Z))
@@ -233,16 +258,16 @@ _ATE_NAF = _ATE_NAF[1:]
 def _dbl_body_impl(f: Fq12, t: ProjG2, xp: L.El, yp: L.El):
     """sq + tangent double + sparse line fold (kernel "miller_dbl_body")."""
     f = T.fq12_sq(f)
-    t2, (a, b, c) = dbl_step(t, xp, yp)
-    f = fq12_mul_line(f, a, b, c)
+    t2, (a, b, c) = _dbl_step_impl(t, xp, yp)
+    f = _fq12_mul_line_impl(f, a, b, c)
     return _pin_fq12(f), _pin_proj(t2)
 
 
 def _add_body_impl(f: Fq12, t: ProjG2, qx: Fq2, qy: Fq2, xp: L.El,
                    yp: L.El):
     """chord add + sparse line fold (kernel "miller_add_body")."""
-    t2, (a, b, c) = add_step(t, qx, qy, xp, yp)
-    f = fq12_mul_line(f, a, b, c)
+    t2, (a, b, c) = _add_step_impl(t, qx, qy, xp, yp)
+    f = _fq12_mul_line_impl(f, a, b, c)
     return _pin_fq12(f), _pin_proj(t2)
 
 
@@ -295,11 +320,11 @@ def _dbl_body2_impl(f: Fq12, t: ProjG2, xp0: L.El, yp0: L.El, ca: Fq2,
     Valid because every pair's recurrence is f_i <- f_i^2 * l_i, so the
     product satisfies (prod f_i) <- (prod f_i)^2 * prod l_i."""
     f = T.fq12_sq(f)
-    t2, (a, b, c) = dbl_step(t, xp0, yp0)
-    f = fq12_mul_line(f, a, b, c)
+    t2, (a, b, c) = _dbl_step_impl(t, xp0, yp0)
+    f = _fq12_mul_line_impl(f, a, b, c)
     a1 = T.fq2_mul_fq(ca, yp1)
     b1 = T.fq2_mul_fq(cb, xp1)
-    f = fq12_mul_line(f, a1, b1, cc)
+    f = _fq12_mul_line_impl(f, a1, b1, cc)
     return _pin_fq12(f), _pin_proj(t2)
 
 
@@ -308,11 +333,11 @@ def _add_body2_impl(f: Fq12, t: ProjG2, qx: Fq2, qy: Fq2, xp0: L.El,
                     yp1: L.El):
     """One addition digit for both pairs (no squaring on adds; kernel
     "miller_add_body2")."""
-    t2, (a, b, c) = add_step(t, qx, qy, xp0, yp0)
-    f = fq12_mul_line(f, a, b, c)
+    t2, (a, b, c) = _add_step_impl(t, qx, qy, xp0, yp0)
+    f = _fq12_mul_line_impl(f, a, b, c)
     a1 = T.fq2_mul_fq(ca, yp1)
     b1 = T.fq2_mul_fq(cb, xp1)
-    f = fq12_mul_line(f, a1, b1, cc)
+    f = _fq12_mul_line_impl(f, a1, b1, cc)
     return _pin_fq12(f), _pin_proj(t2)
 
 
@@ -388,22 +413,29 @@ def miller_loop(xp, yp, qx: Fq2, qy: Fq2, inf_mask=None, naf=None) -> Fq12:
     (matching `pairing(identity, ·) == 1`).
     naf: digit schedule override (tests use a truncated prefix).
 
-    On CUDA tensors the loop is `_miller_loop_unrolled` (one kernel per
-    digit); on CPU tensors `_miller_loop_scan`, as the JAX package
-    dispatches between its two forms.
+    On CUDA tensors under `config.unroll_static_loops` the loop is
+    `_miller_loop_unrolled` (one kernel per digit); otherwise
+    `_miller_loop_scan`, as the JAX package dispatches between its two
+    forms.
     """
-    if T._use_kernels(xp, yp, qx.c0, qy.c0):
+    from .. import config as C
+
+    if C.DEFAULT.unroll_static_loops and T._use_kernels(xp, yp, qx.c0,
+                                                         qy.c0):
         return _miller_loop_unrolled(xp, yp, qx, qy, inf_mask, naf)
     return _miller_loop_scan(xp, yp, qx, qy, inf_mask, naf)
 
 
 def _miller_loop_scan(xp, yp, qx: Fq2, qy: Fq2, inf_mask=None,
                       naf=None) -> Fq12:
-    """The leaf-level loop, the counterpart of JAX's `_miller_loop_scan`.
+    """The per-op loop, the counterpart of JAX's `_miller_loop_scan`.
 
-    Every digit doubles; nonzero digits add Q (digit 1) or -Q (digit -1).
-    Carriers are pinned on both branches, exactly as the JAX scan does, so
-    the limbs match it one for one.
+    Every digit squares and doubles; nonzero digits add Q (digit 1) or -Q
+    (digit -1). Each step op dispatches on its own (`T.fq12_sq`,
+    `_dbl_step`, `_add_step`, `fq12_mul_line`): on the card four kernels
+    per doubling digit and two per addition, 65/23/88/65 on the full
+    schedule. Carriers are pinned on both branches, exactly as the JAX scan
+    does, so the limbs match it one for one.
     """
     batch, dev = xp.batch_shape, xp.device
     f = _pin_fq12(T.fq12_one(batch, dev))
@@ -412,11 +444,11 @@ def _miller_loop_scan(xp, yp, qx: Fq2, qy: Fq2, inf_mask=None,
 
     for d in (_ATE_NAF if naf is None else naf):
         f = T.fq12_sq(f)
-        t, (la, lb, lc) = dbl_step(t, xp, yp)
+        t, (la, lb, lc) = _dbl_step(t, xp, yp)
         f = fq12_mul_line(f, la, lb, lc)
         if d != 0:
             qy_eff = _merge_fq2(qy, nqy) if d > 0 else _merge_fq2(nqy, qy)
-            t, (la, lb, lc) = add_step(t, qx, qy_eff, xp, yp)
+            t, (la, lb, lc) = _add_step(t, qx, qy_eff, xp, yp)
             f = fq12_mul_line(f, la, lb, lc)
         f, t = _pin_fq12(f), _pin_proj(t)
 
@@ -425,9 +457,9 @@ def _miller_loop_scan(xp, yp, qx: Fq2, qy: Fq2, inf_mask=None,
     q2x, q2y = _twist_frob(qx, qy, 2)
     nq2y = T.fq2_neg(q2y)
 
-    t, (la, lb, lc) = add_step(t, q1x, q1y, xp, yp)
+    t, (la, lb, lc) = _add_step(t, q1x, q1y, xp, yp)
     f = fq12_mul_line(f, la, lb, lc)
-    t, (la, lb, lc) = add_step(t, q2x, nq2y, xp, yp)
+    t, (la, lb, lc) = _add_step(t, q2x, nq2y, xp, yp)
     f = fq12_mul_line(f, la, lb, lc)
 
     if inf_mask is not None:

@@ -95,7 +95,7 @@ def pairing_check2(px0, py0, qx, qy, px1, py1,
     One fq12_sq per digit per tuple, no device G2 arithmetic for the
     constant pair, no pair-axis product: the same per-tuple answers as
     stacking the two pairs through `pairing_check`. Its loop is the
-    unrolled kernel form, which callers take on the card only
-    (`dist.batch_verify._use_pair2`)."""
+    unrolled kernel form, which callers take on the card under
+    `config.unroll_static_loops` only (`dist.batch_verify._use_pair2`)."""
     return T.fq12_is_one(
         FE.final_exp(_miller2(px0, py0, qx, qy, px1, py1, q_const)))

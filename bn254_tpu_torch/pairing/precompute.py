@@ -12,9 +12,10 @@ the device only evaluates each precomputed line at P:
 with (ca, cb, cc) constant Fq2 triples, one per line fold of the fixed
 NAF schedule of 6u+2 (65 doublings + 21 NAF adds + 2 Frobenius adds).
 
-The iteration mirrors miller.dbl_step / miller.add_step exactly (same
-projective formulas, same scaling factors), so the pair folding a
-precomputed line folds the very line it would have computed itself.
+The iteration mirrors miller._dbl_step_impl / miller._add_step_impl
+exactly (same projective formulas, same scaling factors), so the pair
+folding a precomputed line folds the very line it would have computed
+itself.
 """
 
 from __future__ import annotations

@@ -16,16 +16,17 @@ Phases, each of which exits non-zero on failure:
      at the main path's widest shape (54 x batch lanes), a lane count that is
      no multiple of the block, lazy boundary limbs, a broadcast operand, and
      an 8-lane sample against the Python-int Montgomery oracle.
-   - The twelve fused kernels of fused.cu against their plain bodies, run
+   - The fifteen fused kernels of fused.cu against their plain bodies, run
      on the card with the plain leaf and no kernel inside, by canonical
      value, every output within the bounds the plain body declares, at the
      widths the paths give each (`WIDTHS`) and at 1 lane: random inputs at
-     the pinned bounds (2^262, 2^16) with boundary lanes (low limbs
-     2^16 - 1, the value 2^262 - 1, zero), a lane count that is no multiple
-     of the 64-thread block, and an unbatched (18,) operand; the two-pair
-     Miller bodies also with their constant line triple (ca, cb, cc)
-     unbatched in its real place, between batched operands. Phase 5 adds
-     every further width the paths launched a kernel at.
+     the pinned bounds (2^262, 2^16) with boundary lanes (the largest value
+     with every low limb as large as the bound allows, the largest value
+     carried, zero), a lane count that is no multiple of the 64-thread
+     block, and an unbatched (18,) operand; the two-pair Miller bodies also
+     with their constant line triple (ca, cb, cc) unbatched in its real
+     place, between batched operands. Phase 6 adds every further lane count
+     and input bound the paths launched a kernel at.
 4. The main path through the user entry points: `api.batch_sign` makes
    the signatures of `batch` distinct messages under `keys` keys (8 held
    against the host oracle), then `api.batch_verify(mode="adaptive")`
@@ -35,9 +36,10 @@ Phases, each of which exits non-zero on failure:
    two-pair kernels (65 + 23 launches). Every kernel's launch count is
    reset just before the adaptive run and read just after: exactly 65
    miller_dbl_body, 23 miller_add_body, 69 expu_step and 24 expu_sq2
-   launches, none of the two-pair bodies, and some launches of montmul,
-   fq12_mul, fq12_cyc_sq, el_pow_step_mul, el_pow_step_sq and glv_dbl_add
-   (fq12_sq runs only inside the Miller bodies on this path).
+   launches, none of the two-pair bodies, of fq12_sq (which this path runs
+   only inside the Miller bodies) or of the scan loop's step ops, and some
+   launches of montmul, fq12_mul, fq12_cyc_sq, el_pow_step_mul,
+   el_pow_step_sq and glv_dbl_add.
 5. The independent tier at full width, the first `independent` (4,096)
    tuples of the main batch: `api.batch_verify(mode="independent")` runs
    pair2 (the JAX package's default) and must accept all, with exactly 65
@@ -49,25 +51,40 @@ Phases, each of which exits non-zero on failure:
    CPU takes).
    `api.batch_check_public_keys` on 64 key pairs, 3 of them mismatched,
    must return exactly the expected bools through 65 + 23 two-pair
-   launches. Then every fused kernel is held against its plain body, as in
-   phase 3, at each further lane count that the runs of phases 4 and 5
-   (adaptive, tampered, independent, key check) launched it at.
-6. Times on a warm repeat (CUDA events): per stage (the weights stage also
-   split into the GLV ladders and the signature tree-sum, the final
-   exponentiation into its easy part, one exp_u, the hard part and is_one),
-   end to end, the launch
-   counts of a warm run (the same exact counts), per kernel ms at its
-   path's width beside its bound and its plain version, and the device
+   launches.
+6. `config.unroll_static_loops=False` (`BN254_DISABLE_UNROLL`), set in
+   `config.DEFAULT` for the phase: the adaptive run at `batch` must accept
+   with exactly 65 fq12_sq, 65 g2_dbl_step, 23 g2_add_step and 88
+   fq12_mul_line launches (the scan-form Miller loop), 193 fq12_cyc_sq and
+   the default path's fq12_mul + 93 (exp_u's scan form), none of the
+   unrolled-only kernels and some montmul (the powers and the GLV ladder
+   leaf by leaf; the leaf launches of the loop's pins are counted); the
+   swapped batch must be rejected, the tampered 64-tuple batch flagged at
+   exactly its index (fused check and stacked fallback, 130/46/176/130
+   step-op launches), the independent tier with three tampered flagged
+   exactly through the stacked form at 2 x `independent` lanes, and the
+   key check exact. Then every fused kernel is held against its plain body,
+   as in phase 3, at each further (lane count, input bounds) that the runs
+   of phases 4 to 6 launched it at (recorded by wrapping `fused.fused_op`
+   and `fused._launch`).
+7. Times on a warm repeat (CUDA events), in both configurations: per stage
+   (the weights stage also split into the GLV ladders and the signature
+   tree-sum, the final exponentiation into its easy part, one exp_u, the
+   hard part and is_one), end to end, the launch counts of a warm run (the
+   same exact counts) and the montmul launches per verify; per kernel ms at
+   its path's width beside its bound and its plain version, and the device
    busy share (profiler kernel time over wall time) of one miller_dbl_body
    launch and of one whole exp_u; the independent tier's verifies/s and
-   its stages (hash, Miller, final exp) for both forms, in turns; the
-   kernels the independent tier shares with the adaptive path at the
-   independent run's widths and launch counts.
+   its stages (hash, Miller, final exp) for pair2, the stacked form and the
+   stacked form with unroll_static_loops=False, in turns; the kernels the
+   independent tier shares with the adaptive path at the independent run's
+   widths and launch counts.
 
-It prints a kernels JSON line with every kernel the two paths launch, each
-with the path its launch count comes from (fq12_sq, checked and timed all
-the same, is printed on a line of its own; the shared kernels' rows for
-the independent path on the line before the card's), and as its last line
+It prints a kernels JSON line with every fused kernel on the path that
+launches it, each with that path's name and launch count (`adaptive`; the
+two-pair bodies `independent`; fq12_sq and the three step ops
+`adaptive_no_unroll`), the shared kernels' rows for the independent path on
+the line before the card's, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -93,16 +110,28 @@ LEAF_MADS = 2 * 18 * 18  # 32-bit multiply-adds of one CIOS leaf multiply
 # the main path's launches of each fused kernel per batch: 65 NAF digits;
 # 21 nonzero digits + 2 Frobenius steps; 3 exp_u x 23 nonzero / 8 zero
 # windows. The other kernels' counts depend on the batch; they must be > 0,
-# except fq12_sq's, which the path runs only inside the Miller bodies.
+# except those the path never runs (NOT_ON_MAIN_PATH, which must be 0).
 MAIN_PATH_LAUNCHES = {"miller_dbl_body": 65, "miller_add_body": 23,
                       "expu_step": 69, "expu_sq2": 24}
-OFF_PATH = {"fq12_sq"}
 # the independent tier on the card (pair2): the same schedule through the
 # two-pair bodies, then the final exponentiation at one lane per tuple
 PAIR2 = ("miller_dbl_body2", "miller_add_body2")
 INDEPENDENT_LAUNCHES = {"miller_dbl_body2": 65, "miller_add_body2": 23,
                         "miller_dbl_body": 0, "miller_add_body": 0,
                         "expu_step": 69, "expu_sq2": 24}
+# config.unroll_static_loops=False: the scan-form Miller loop, one launch
+# per step op: 65 squares and doublings, 21 + 2 additions, a line fold after
+# each of the 88 steps; exp_u's scan form adds 2 x 31 cyclotomic squares and
+# 31 products per exp_u to the default path's counts; the kernels that only
+# the unrolled forms and pair2 run stay at 0
+SCAN_OPS = ("g2_dbl_step", "g2_add_step", "fq12_mul_line")
+SCAN_MILLER_LAUNCHES = {"g2_dbl_step": 65, "g2_add_step": 23,
+                        "fq12_mul_line": 88, "fq12_sq": 65}
+UNROLLED_ONLY = ("miller_dbl_body", "miller_add_body", *PAIR2, "expu_step",
+                 "expu_sq2", "el_pow_step_mul", "el_pow_step_sq",
+                 "glv_dbl_add")
+EXP_U_SCAN_EXTRA = {"fq12_cyc_sq": 3 * 62, "fq12_mul": 3 * 31}
+NOT_ON_MAIN_PATH = {"fq12_sq", *PAIR2, *SCAN_OPS}  # fq12_sq: inside bodies
 
 
 def fail(msg: str) -> None:
@@ -195,6 +224,7 @@ def main() -> int:
         from bn254_tpu_torch.pairing import miller as M
         from bn254_tpu_torch.pairing import pairing as DP
         from bn254_tpu_torch.utils import convert as CV
+        from bn254_tpu_torch.utils import samples as SM
     except ImportError as e:
         print(f"chip_smoke: the bn254_tpu_torch package is missing ({e}); "
               "run from the root of the repository", file=sys.stderr)
@@ -238,7 +268,7 @@ def main() -> int:
         return x.to(dev)
 
     max_err = {k: 0 for k in ["montmul", *FK.KERNELS]}
-    checked = {k: set() for k in FK.KERNELS}  # lane counts compared
+    checked = {k: set() for k in FK.KERNELS}  # (lanes, input bounds) compared
 
     def check(tag, a, b):
         got = MK.montmul_cuda(a, b)
@@ -272,53 +302,63 @@ def main() -> int:
     @contextlib.contextmanager
     def plain_leaf(count=None):
         """Plain bodies run with the plain torch leaf and no kernel inside
-        (kernel mode); with `count`, the leaf multiplies per lane are
-        tallied in it."""
-        saved = MK.montmul
+        (kernel mode); with `count`, the products of the function per lane
+        are tallied in it. The leaves of `limbs.vreduce` are left out: they
+        only squeeze the plain body's lazy value bounds (the kernels keep
+        every Fp below 2p with conditional adds and subtracts instead)."""
+        saved, saved_vreduce = MK.montmul, L.vreduce
+        squeezing = [False]
 
         def leaf(a, b):
-            if count is not None:
+            if count is not None and not squeezing[0]:
                 count[0] += torch.broadcast_tensors(a, b)[0].numel() // NLIMBS
             return MK.montmul_plain(a, b)
 
-        MK.montmul = leaf
+        def vreduce(a):
+            squeezing[0] = True
+            try:
+                return saved_vreduce(a)
+            finally:
+                squeezing[0] = False
+
+        MK.montmul, L.vreduce = leaf, vreduce
         try:
             with FK.kernel_mode():
                 yield
         finally:
-            MK.montmul = saved
+            MK.montmul, L.vreduce = saved, saved_vreduce
 
-    # each kernel's widest main-path width: the B+1 Miller rows; the first
-    # level of the Fq12 product tree; the one-lane final exponentiation; the
-    # hash's B x k square roots; the (H, sig) pair axis of the GLV ladder;
-    # the two-pair bodies at one lane per tuple of the independent tier
+    # each kernel's widest main-path width: the B+1 Miller rows (the
+    # unrolled bodies, or the scan form's step ops and line folds); the
+    # first level of the Fq12 product tree; the one-lane final
+    # exponentiation; the hash's B x k square roots; the (H, sig) pair axis
+    # of the GLV ladder; the two-pair bodies at one lane per tuple of the
+    # independent tier
     K = C.DEFAULT.k_candidates
     WIDTHS = {"miller_dbl_body": B + 1, "miller_add_body": B + 1,
               "miller_dbl_body2": NI, "miller_add_body2": NI,
               "expu_step": 1, "expu_sq2": 1, "fq12_mul": (B + 1) // 2,
               "fq12_sq": B + 1, "fq12_cyc_sq": 1, "el_pow_step_mul": B * K,
-              "el_pow_step_sq": B * K, "glv_dbl_add": 2 * B}
+              "el_pow_step_sq": B * K, "glv_dbl_add": 2 * B,
+              **dict.fromkeys(SCAN_OPS, B + 1)}
     rng = np.random.default_rng(args.seed)
-    STD, LMAX = L.STD_BOUND, 1 << 16
+    PINS = (L.STD_BOUND, 1 << 16)
 
-    def body_inputs(key, n, unbatched=()):
-        """Random inputs at the pinned bounds on n lanes, boundary lanes
-        first; the arguments named in `unbatched` as (18,) Els."""
+    def body_inputs(key, n, unbatched=(), bounds=None):
+        """Random inputs on n lanes, boundary lanes first, each El within
+        its (vmax, lmax) of `bounds` (default: all at the pins, (2^262,
+        2^16)); the arguments named in `unbatched` as (18,) Els."""
         n_in = FK.arity(key)[0]
-        x = rng.integers(0, 1 << 16, size=(n_in, NLIMBS, n), dtype=np.int64)
-        x[:, NLIMBS - 1] = rng.integers(0, 126, size=(n_in, n))
-        if n >= 3:
-            x[:, :, 0] = LMAX - 1
-            x[:, NLIMBS - 1, 0] = 125  # value < 2^262, low limbs at 2^16-1
-            x[:, :, 1] = (1 << 15) - 1
-            x[:, NLIMBS - 1, 1] = (STD - 1) >> (15 * (NLIMBS - 1))  # 2^262-1
-            x[:, :, 2] = 0
-        args_ = FK.args_from_leaves(
-            key, [CV.from_numpy(x[i], STD, LMAX, dev) for i in range(n_in)])
+        args_ = FK.args_from_leaves(key, [
+            CV.from_numpy(SM.bounded_limbs(rng, vm, lm, n), vm, lm, dev)
+            for vm, lm in (bounds or (PINS,) * n_in)])
         names = inspect.signature(FK.signature(key)[0]).parameters
         return tuple(
             L.tree_map(lambda e: L.El(e.arr[:, 0], e.vmax, e.lmax), a)
             if name in unbatched else a for name, a in zip(names, args_))
+
+    def in_bounds(args_):
+        return tuple((e.vmax, e.lmax) for e in L.tree_leaves(args_))
 
     def compare(key, tag, args_):
         body = FK.signature(key)[0]
@@ -338,7 +378,7 @@ def main() -> int:
             cg, cw = L.canon(g).arr, L.canon(w).arr
             err = max(err, int((cg - cw).abs().max()) if cg.numel() else 0)
         max_err[key] = max(max_err[key], err)
-        checked[key].add(gl[0].arr[0].numel())
+        checked[key].add((gl[0].arr[0].numel(), in_bounds(args_)))
         if err:
             fail(f"{key} differs from its plain body on {tag} by value")
         shape = tuple(gl[0].arr.shape)
@@ -376,32 +416,41 @@ def main() -> int:
         if exact != MAIN_PATH_LAUNCHES:
             fail(f"{tag}: fused kernel launches {exact}, "
                  f"want {MAIN_PATH_LAUNCHES}")
-        off = OFF_PATH | set(PAIR2)  # the two-pair bodies: independent tier
-        idle = [k for k, v in got.items() if not v and k not in off]
+        idle = [k for k, v in got.items() if not v and k not in
+                NOT_ON_MAIN_PATH]
         if idle or MK.launches == 0:
             fail(f"{tag}: the main path launched no {idle or 'montmul'} kernel")
-        if any(got[k] for k in off):
-            fail(f"{tag}: unexpected launches of {sorted(off)}")
+        if any(got[k] for k in NOT_ON_MAIN_PATH):
+            fail(f"{tag}: unexpected launches of {sorted(NOT_ON_MAIN_PATH)}")
         return {**got, "montmul": MK.launches}
 
-    run_widths = {}  # the lane counts of every launch of the runs below
+    # (lane count, input bounds) of every fused launch of the runs below
+    run_launches = {}
 
     @contextlib.contextmanager
-    def widths_recorded(*into):
-        """Each fused kernel launch's lane count, added to every dict of
-        `into` under its key."""
-        launch = FK._launch
+    def launches_recorded(*into):
+        """Each fused kernel launch's (lane count, input bounds), added to
+        every dict of `into` under its key."""
+        fused_op, launch = FK.fused_op, FK._launch
+        bounds = [None]  # the bounds of the fused_op call that launches
+
+        def recorded_op(fn, key, *args_):
+            bounds[0] = in_bounds(args_)
+            return fused_op(fn, key, *args_)
 
         def recorded(key, packed, out):
             for d in into:
-                d.setdefault(key, set()).add(packed.shape[2])
+                d.setdefault(key, set()).add((packed.shape[2], bounds[0]))
             return launch(key, packed, out)
 
-        FK._launch = recorded
+        FK.fused_op, FK._launch = recorded_op, recorded
         try:
             yield
         finally:
-            FK._launch = launch
+            FK.fused_op, FK._launch = fused_op, launch
+
+    def lanes(recorded):
+        return {k: sorted({n for n, _ in v}) for k, v in recorded.items()}
 
     def check_pair2_counts(tag, want=INDEPENDENT_LAUNCHES):
         got = {k: FK.launches[k] for k in want}
@@ -434,7 +483,7 @@ def main() -> int:
           "the host oracle")
 
     reset_counts()
-    with widths_recorded(run_widths):
+    with launches_recorded(run_launches):
         t0 = time.perf_counter()
         ok = api.batch_verify(msgs, sigs, pks, mode="adaptive")
         torch.cuda.synchronize()
@@ -455,7 +504,7 @@ def main() -> int:
     tampered = list(sigs[:small])
     tampered[bad_i] = api.Signature(HC.g1_mul(sigs[bad_i].point, 2))
     reset_counts()
-    with widths_recorded(run_widths):
+    with launches_recorded(run_launches):
         ok64 = api.batch_verify(msgs[:small], tampered, pks[:small],
                                 mode="adaptive")
     if ok64.tolist() != [i != bad_i for i in range(small)]:
@@ -470,9 +519,9 @@ def main() -> int:
 
     # -- 5. the independent tier (pair2) at full width ---------------------------
     msgs_i, sigs_i, pks_i = msgs[:NI], sigs[:NI], pks[:NI]
-    ind_widths = {}  # the lane counts of the independent run's launches
+    ind_widths = {}  # the (lanes, bounds) of the independent run's launches
     reset_counts()
-    with widths_recorded(ind_widths, run_widths):
+    with launches_recorded(ind_widths, run_launches):
         t0 = time.perf_counter()
         ok = api.batch_verify(msgs_i, sigs_i, pks_i, mode="independent")
         torch.cuda.synchronize()
@@ -487,7 +536,7 @@ def main() -> int:
     print(f"verify independent B={NI} (pair2): all {NI} valid, "
           f"{ind_cold_s:.2f} s cold, launches {json.dumps(ind_launches)}; "
           "one output template per two-pair body; lanes per launch "
-          + json.dumps({k: sorted(v) for k, v in ind_widths.items()}))
+          + json.dumps(lanes(ind_widths)))
 
     bad = sorted({min(5, NI - 1), NI // 2, NI - 1})
     tampered_i = list(sigs_i)
@@ -530,7 +579,7 @@ def main() -> int:
     pk1s = [Key(HC.g1_mul(HC.G1_ONE, k + (i in bad_pk)))
             for i, k in enumerate(pk_sks)]
     reset_counts()
-    with widths_recorded(run_widths):
+    with launches_recorded(run_launches):
         ok_pk = api.batch_check_public_keys(pk2s, pk1s)
     check_pair2_counts("batch_check_public_keys", {
         "miller_dbl_body2": 65, "miller_add_body2": 23,
@@ -541,66 +590,189 @@ def main() -> int:
     print(f"batch_check_public_keys: {n_pk} key pairs, exactly {bad_pk} "
           "mismatched, through 65 + 23 two-pair kernel launches")
 
-    # every fused kernel against its plain body at each further lane count
-    # the runs above launched it at
-    with torch.inference_mode():
-        for key, widths in run_widths.items():
-            for n in sorted(widths - checked[key]):
-                compare(key, f"{n} lanes (a width the paths launched at)",
-                        body_inputs(key, n))
+    # -- 6. config.unroll_static_loops=False -------------------------------------
+    @contextlib.contextmanager
+    def no_unroll():
+        """config.DEFAULT with the loops in their scan forms (the dispatch
+        sites read config.DEFAULT), restored after."""
+        saved = C.DEFAULT
+        C.DEFAULT = saved.replace(unroll_static_loops=False)
+        try:
+            yield
+        finally:
+            C.DEFAULT = saved
 
-    # -- 6. times on a warm repeat ---------------------------------------------------
+    def check_scan_counts(tag, want):
+        """Exact counts of `want`, none of the unrolled-only kernels, some
+        montmul."""
+        got = {**FK.launches, "montmul": MK.launches}
+        want = {**dict.fromkeys(UNROLLED_ONLY, 0), **want}
+        if {k: got[k] for k in want} != want or not got["montmul"]:
+            fail(f"{tag}: launches {json.dumps(got)}, want "
+                 f"{json.dumps(want)} and some montmul")
+        return got
+
+    pin_leaves = [0]  # the leaf multiplies launched by the Miller loop's pins
+
+    @contextlib.contextmanager
+    def pin_leaves_counted():
+        pin_el = M._pin_el
+
+        def counted(e):
+            pin_leaves[0] += e.vmax > L.STD_BOUND  # one vreduce leaf launch
+            return pin_el(e)
+
+        M._pin_el = counted
+        try:
+            yield
+        finally:
+            M._pin_el = pin_el
+
+    scan_want = {**SCAN_MILLER_LAUNCHES, **{
+        k: main_launches[k] + v for k, v in EXP_U_SCAN_EXTRA.items()}}
+    nu = "unroll_static_loops=False"
+    with no_unroll():
+        reset_counts()
+        with launches_recorded(run_launches), pin_leaves_counted():
+            t0 = time.perf_counter()
+            ok = api.batch_verify(msgs, sigs, pks, mode="adaptive")
+            torch.cuda.synchronize()
+            scan_cold_s = time.perf_counter() - t0
+        scan_launches = check_scan_counts(f"cold adaptive run, {nu}",
+                                          scan_want)
+        if ok.shape != (B,) or not ok.all():
+            fail(f"adaptive ({nu}) rejected a valid batch: "
+                 f"{int((~ok).sum())} false")
+        print(f"verify adaptive B={B}, {nu}: all {B} valid, "
+              f"{scan_cold_s:.2f} s cold, launches "
+              f"{json.dumps(scan_launches)}; {pin_leaves[0]} of the montmul "
+              "launches are the Miller loop's pins")
+
+        if api.batch_verify(msgs, swapped, pks, mode="fused"):
+            fail(f"fused ({nu}) accepted a batch with a swapped signature")
+        print(f"verify fused, {nu}: rejects the batch with one signature "
+              "swapped")
+
+        reset_counts()
+        with launches_recorded(run_launches):
+            ok64 = api.batch_verify(msgs[:small], tampered, pks[:small],
+                                    mode="adaptive")
+        if ok64.tolist() != [i != bad_i for i in range(small)]:
+            fail(f"adaptive B={small} ({nu}) flagged "
+                 f"{np.flatnonzero(~ok64).tolist()}, want [{bad_i}]")
+        # the fused pre-check, then the stacked independent fallback
+        check_scan_counts(f"adaptive B={small} tampered, {nu}", {
+            k: 2 * v for k, v in SCAN_MILLER_LAUNCHES.items()})
+        print(f"verify adaptive B={small}, {nu}: exactly index {bad_i} "
+              "rejected, the fused check and the stacked fallback through "
+              + json.dumps({k: 2 * v for k, v in SCAN_MILLER_LAUNCHES.items()})
+              + " step-op launches")
+
+        scan_ind = {}
+        reset_counts()
+        with launches_recorded(scan_ind, run_launches):
+            ok_t = api.batch_verify(msgs_i, tampered_i, pks_i,
+                                    mode="independent")
+        check_scan_counts(f"independent run, {nu}", SCAN_MILLER_LAUNCHES)
+        if np.flatnonzero(~ok_t).tolist() != bad:
+            fail(f"independent ({nu}) flagged "
+                 f"{np.flatnonzero(~ok_t).tolist()}, want {bad}")
+        if lanes(scan_ind)["g2_dbl_step"] != [2 * NI]:
+            fail(f"independent ({nu}): the step ops ran at "
+                 f"{lanes(scan_ind)['g2_dbl_step']} lanes, want {2 * NI}")
+        print(f"verify independent B={NI}, {nu}: exactly {bad} rejected by "
+              f"the stacked form at {2 * NI} lanes; lanes per launch "
+              + json.dumps(lanes(scan_ind)))
+
+        reset_counts()
+        with launches_recorded(run_launches):
+            ok_pk = api.batch_check_public_keys(pk2s, pk1s)
+        check_scan_counts(f"batch_check_public_keys, {nu}",
+                          SCAN_MILLER_LAUNCHES)
+        if ok_pk.tolist() != [i not in bad_pk for i in range(n_pk)]:
+            fail(f"batch_check_public_keys ({nu}) flagged "
+                 f"{np.flatnonzero(~ok_pk).tolist()}, want {bad_pk}")
+        print(f"batch_check_public_keys, {nu}: {n_pk} key pairs, exactly "
+              f"{bad_pk} mismatched, through the stacked form")
+
+    # every fused kernel against its plain body at each further (lane count,
+    # input bounds) the runs of phases 4 to 6 launched it at
     with torch.inference_mode():
-        (hx, hy), hash_ms = events_ms(
-            torch, lambda: hash_to_g1_device(msgs, None, dev))
-        sx, sy = CV.g1_batch_to_device_affine([s.point for s in sigs], dev)
-        pqx, pqy = CV.g2_batch_to_device_affine(
-            [k.point for k in pks], dev)
-        w = BV.random_weights(B, 128, dev)
-        pts, points_ms = events_ms(torch, lambda: BV._fused_points(
-            hx, hy, sx, sy, pqx, pqy, w, w.half_bits))
-        (_, ws), ladder_ms = events_ms(torch, lambda: BV._apply_weights(
-            hx, hy, sx, sy, w, w.half_bits))
-        _, tree_sum_ms = events_ms(torch, lambda: BV._g1_tree_sum(ws))
-        f_red, miller_ms = events_ms(torch, lambda: BV._miller_reduce(*pts))
-        one, fe_ms = events_ms(
-            torch, lambda: T.fq12_is_one(FE.final_exp(f_red)))
-        if not bool(one):
-            fail("the stage-by-stage fused check rejected the valid batch")
-        # the final exponentiation's parts, as FE.final_exp runs them
-        f_cyc, easy_ms = events_ms(torch, lambda: T.fq12_retag(
-            FE.easy_part(T.fq12_retag(f_red))))
-        ft1, expu_ms = events_ms(torch, lambda: T.fq12_retag(FE.exp_u(f_cyc)))
-        ft2 = T.fq12_retag(FE.exp_u(ft1))
-        ft3 = T.fq12_retag(FE.exp_u(ft2))
-        f_fin, hard_ms = events_ms(torch, lambda: FE._retag_tight(
-            FE.hard_combine(f_cyc, ft1, ft2, ft3)))
-        one, is_one_ms = events_ms(torch, lambda: T.fq12_is_one(f_fin))
-        if not bool(one):
-            fail("the part-by-part final exponentiation rejected the batch")
-    reset_counts()
-    t0 = time.perf_counter()
-    ok, e2e_ms = events_ms(
-        torch, lambda: api.batch_verify(msgs, sigs, pks, mode="adaptive"))
-    e2e_host_s = time.perf_counter() - t0
-    warm_launches = check_counts("warm adaptive run")
-    if not ok.all():
-        fail("warm adaptive run rejected the valid batch")
-    stages = {
-        "hash_ms": hash_ms, "weights_points_ms": points_ms,
-        "glv_ladders_ms": ladder_ms, "g1_tree_sum_ms": tree_sum_ms,
-        "miller_reduce_ms": miller_ms, "final_exp_is_one_ms": fe_ms,
-        "fe_easy_part_ms": easy_ms, "fe_one_exp_u_ms": expu_ms,
-        "fe_hard_part_ms": hard_ms, "fe_is_one_ms": is_one_ms,
-        "e2e_adaptive_ms": e2e_ms, "verifies_per_s": B / (e2e_ms / 1e3),
-        "launches_per_batch": warm_launches,
-        "montmul_launches_per_verify": warm_launches["montmul"] / B,
-        "sign_s": sign_s, "cold_adaptive_s": cold_s, "warm_host_s": e2e_host_s,
-        "batch": B,
-    }
-    print(f"times on {card} (B={B}, warm, CUDA events): "
-          + json.dumps({k: round(v, 4) if isinstance(v, float) else v
-                        for k, v in stages.items()}))
+        for key, seen in run_launches.items():
+            for n, bounds in sorted(seen - checked[key]):
+                top = (max(v for v, _ in bounds) - 1).bit_length()
+                lmax = max(lm for _, lm in bounds)
+                compare(key, f"{n} lanes, inputs at the bounds a path "
+                        f"launched it at (values < 2^{top}, limbs < "
+                        f"{lmax})", body_inputs(key, n, bounds=bounds))
+
+    # -- 7. times on a warm repeat ---------------------------------------------------
+    def stage_times(tag, check_warm, **extra):
+        """Warm per-stage ms (CUDA events) of the fused tier under the
+        current config, stage by stage as verify_batch_fused runs them,
+        then the whole adaptive call, whose launches `check_warm` holds."""
+        with torch.inference_mode():
+            (hx, hy), hash_ms = events_ms(
+                torch, lambda: hash_to_g1_device(msgs, None, dev))
+            sx, sy = CV.g1_batch_to_device_affine([s.point for s in sigs],
+                                                  dev)
+            pqx, pqy = CV.g2_batch_to_device_affine(
+                [k.point for k in pks], dev)
+            w = BV.random_weights(B, 128, dev)
+            pts, points_ms = events_ms(torch, lambda: BV._fused_points(
+                hx, hy, sx, sy, pqx, pqy, w, w.half_bits))
+            (_, ws), ladder_ms = events_ms(torch, lambda: BV._apply_weights(
+                hx, hy, sx, sy, w, w.half_bits))
+            _, tree_sum_ms = events_ms(torch, lambda: BV._g1_tree_sum(ws))
+            f_red, miller_ms = events_ms(
+                torch, lambda: BV._miller_reduce(*pts))
+            one, fe_ms = events_ms(
+                torch, lambda: T.fq12_is_one(FE.final_exp(f_red)))
+            if not bool(one):
+                fail(f"the stage-by-stage fused check{tag} rejected the "
+                     "valid batch")
+            # the final exponentiation's parts, as FE.final_exp runs them
+            f_cyc, easy_ms = events_ms(torch, lambda: T.fq12_retag(
+                FE.easy_part(T.fq12_retag(f_red))))
+            ft1, expu_ms = events_ms(
+                torch, lambda: T.fq12_retag(FE.exp_u(f_cyc)))
+            ft2 = T.fq12_retag(FE.exp_u(ft1))
+            ft3 = T.fq12_retag(FE.exp_u(ft2))
+            f_fin, hard_ms = events_ms(torch, lambda: FE._retag_tight(
+                FE.hard_combine(f_cyc, ft1, ft2, ft3)))
+            one, is_one_ms = events_ms(torch, lambda: T.fq12_is_one(f_fin))
+            if not bool(one):
+                fail(f"the part-by-part final exponentiation{tag} rejected "
+                     "the batch")
+        reset_counts()
+        t0 = time.perf_counter()
+        ok, e2e_ms = events_ms(
+            torch, lambda: api.batch_verify(msgs, sigs, pks, mode="adaptive"))
+        e2e_host_s = time.perf_counter() - t0
+        warm_launches = check_warm(f"warm adaptive run{tag}")
+        if not ok.all():
+            fail(f"warm adaptive run{tag} rejected the valid batch")
+        stages = {
+            "hash_ms": hash_ms, "weights_points_ms": points_ms,
+            "glv_ladders_ms": ladder_ms, "g1_tree_sum_ms": tree_sum_ms,
+            "miller_reduce_ms": miller_ms, "final_exp_is_one_ms": fe_ms,
+            "fe_easy_part_ms": easy_ms, "fe_one_exp_u_ms": expu_ms,
+            "fe_hard_part_ms": hard_ms, "fe_is_one_ms": is_one_ms,
+            "e2e_adaptive_ms": e2e_ms, "verifies_per_s": B / (e2e_ms / 1e3),
+            "launches_per_batch": warm_launches,
+            "montmul_launches_per_verify": warm_launches["montmul"] / B,
+            "warm_host_s": e2e_host_s, "batch": B, **extra,
+        }
+        print(f"times on {card} (B={B}{tag}, warm, CUDA events): "
+              + json.dumps({k: round(v, 4) if isinstance(v, float) else v
+                            for k, v in stages.items()}))
+        return stages, pts, f_cyc
+
+    stages, pts, f_cyc = stage_times("", check_counts, sign_s=sign_s,
+                                     cold_adaptive_s=cold_s)
+    with no_unroll():
+        stage_times(f", {nu}", lambda tag: check_scan_counts(tag, scan_want),
+                    cold_adaptive_s=scan_cold_s)
 
     # device busy share (profiler kernel time over unprofiled wall time) of
     # one miller_dbl_body launch on the B+1 rows and of one whole exp_u on
@@ -639,8 +811,15 @@ def main() -> int:
             print(f"busy share, {tag}: wall {wall_ms:.3f} ms, device "
                   f"{stages[f'{tag}_device_ms']} ms, {n_ops} aten ops (profiler)")
 
-    # the independent tier: stages and verifies/s of both forms, in turns
+    # the independent tier: stages and verifies/s of pair2 and the stacked
+    # form (single-pair bodies), and of the stacked form with
+    # unroll_static_loops=False (the scan loop's step ops), in turns
     def independent_times(form):
+        with (no_unroll() if form == "stacked_no_unroll"
+              else contextlib.nullcontext()):
+            return _independent_times(form)
+
+    def _independent_times(form):
         with torch.inference_mode():
             (hx, hy), h_ms = events_ms(
                 torch, lambda: hash_to_g1_device(msgs_i, None, dev))
@@ -669,8 +848,9 @@ def main() -> int:
                 "final_exp_is_one_ms": fe_ms, "e2e_ms": e2e_ms,
                 "verifies_per_s": NI / (e2e_ms / 1e3)}
 
-    ind_times = {"pair2": [], "stacked": []}
-    for form in ("pair2", "stacked", "stacked", "pair2"):
+    ind_times = {"pair2": [], "stacked": [], "stacked_no_unroll": []}
+    for form in ("pair2", "stacked", "stacked_no_unroll",
+                 "stacked_no_unroll", "stacked", "pair2"):
         ind_times[form].append(independent_times(form))
     for form, runs in ind_times.items():
         print(f"independent B={NI} {form} on {card} (warm, CUDA events, two "
@@ -710,7 +890,7 @@ def main() -> int:
         n_in, n_out = FK.arity(key)
         args_ = body_inputs(key, n)
         leaves = [0]
-        with plain_leaf(leaves):  # leaf multiplies per lane, on 1 lane
+        with plain_leaf(leaves):  # products per lane, on 1 lane
             body(*body_inputs(key, 1))
         ms = launch_ms(key, args_)
         _, wrap_ms = events_ms(torch, lambda: FK.fused_op(body, key, *args_),
@@ -720,7 +900,7 @@ def main() -> int:
         t_bytes = (n_in + n_out) * NLIMBS * 8 * n / HBM_BYTES_PER_S * 1e3
         t_ops = leaves[0] * LEAF_MADS * n / INT32_MAD_PER_S * 1e3
         print(f"kernel {key} ({path} path): {n} lanes, {leaves[0]} leaf "
-              f"multiplies per lane, {ms:.4f} ms per launch ({wrap_ms:.4f} ms "
+              f"products per lane, {ms:.4f} ms per launch ({wrap_ms:.4f} ms "
               f"through fused_op), plain {plain_ms:.3f} ms, bound "
               f"{max(t_bytes, t_ops):.6f} ms")
         return {
@@ -733,8 +913,11 @@ def main() -> int:
             "library_ms": None,
         }
 
-    off_path = []  # measured and printed, but not kernels of the main path
-    # the kernels the independent run shares with the adaptive path, at the
+    # each kernel on the path that runs it: the two-pair bodies on the
+    # independent tier, fq12_sq (only inside the Miller bodies on the
+    # others) and the scan loop's step ops on the adaptive path with
+    # unroll_static_loops=False, the rest on the adaptive path; and the
+    # kernels the independent run shares with the adaptive path, at the
     # widest width and the launch count of the independent run
     shared = []
     with torch.inference_mode():
@@ -743,14 +926,17 @@ def main() -> int:
                 kernels.append(kernel_row(key, WIDTHS[key], "independent",
                                           ind_launches[key]))
                 continue
-            (off_path if key in OFF_PATH else kernels).append(
+            if key in SCAN_MILLER_LAUNCHES:
+                kernels.append(kernel_row(key, WIDTHS[key],
+                                          "adaptive_no_unroll",
+                                          scan_launches[key]))
+                continue
+            kernels.append(
                 kernel_row(key, WIDTHS[key], "adaptive", main_launches[key]))
             if key in ind_widths:
-                shared.append(kernel_row(key, max(ind_widths[key]),
-                                         "independent", ind_launches[key]))
-    for k in off_path:
-        print(f"kernel {k['name']} is off the main path (0 launches there), "
-              f"so not on the kernels line: {json.dumps(k)}")
+                shared.append(kernel_row(
+                    key, max(n for n, _ in ind_widths[key]), "independent",
+                    ind_launches[key]))
     print(json.dumps({"independent_path_kernels": shared}))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -6,7 +6,7 @@ carry-across functions (`utils.convert.from_numpy` and
 `np.array_equal`, together with the (vmax, lmax) bounds, unless a test says
 "by value":
 
-* the twelve plain bodies against JAX's same `_impl` at B=3, inputs at the
+* the fifteen plain bodies against JAX's same `_impl` at B=3, inputs at the
   pinned / retagged bounds (2^262, 2^16);
 * `_miller_loop_unrolled(naf=(1, -1))`, Frobenius steps included,
   `_exp_u_unrolled` over one zero and one nonzero window, `_pow_fixed_fused`
@@ -61,6 +61,9 @@ JAX_BODIES = {
     "el_pow_step_mul": JL._pow_step_mul,
     "el_pow_step_sq": JL._pow_step_sq,
     "glv_dbl_add": JGLV._dbl_add_body_impl,
+    "fq12_mul_line": JM._fq12_mul_line_impl,
+    "g2_dbl_step": JM._dbl_step_impl,
+    "g2_add_step": JM._add_step_impl,
 }
 
 # the port's tree types -> the JAX package's
@@ -282,9 +285,8 @@ def test_cuda_path_refusals(monkeypatch):
     monkeypatch.setattr(FK, "_on_cuda", lambda els: True)
     rng = np.random.default_rng(5)
     f = body_args("fq12_sq", lazy_limbs(rng, 12, 2))[0]
-    a, b, c = f.c0
-    with pytest.raises(NotImplementedError, match="fq12_mul_line"):
-        FK.fused_op(M.fq12_mul_line, "fq12_mul_line", f, a, b, c)
+    with pytest.raises(NotImplementedError, match="fq12_conj"):
+        FK.fused_op(T.fq12_conj, "fq12_conj", f)
     wide = L.tree_map(lambda e: L.El(e.arr, 1 << 271, e.lmax), f)
     with pytest.raises(ValueError, match="exceeds"):
         FK.fused_op(FE._expu_sq2_impl, "expu_sq2", wide)

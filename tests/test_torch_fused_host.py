@@ -36,6 +36,7 @@ from bn254_tpu_torch.pairing import final_exp as FE
 from bn254_tpu_torch.pairing import miller as M
 from bn254_tpu_torch.pairing import precompute as PC
 from bn254_tpu_torch.utils import convert as CV
+from bn254_tpu_torch.utils import samples as SM
 
 SRC = pathlib.Path(FK.__file__).resolve().parent / "fused.cu"
 N = 5
@@ -58,20 +59,27 @@ def host_lib(tmp_path_factory):
 
 def boundary_limbs(rng, n_els):
     """(n_els, 18, N) limbs within the pinned bound (value < 2^262, limbs
-    < 2^16): lane 0 every low limb at 2^16-1 with the largest top limb the
-    bound allows, lane 1 the value 2^262-1, lane 2 zero, lanes 3.. random
-    lazy limbs."""
-    x = rng.integers(0, 1 << 16, size=(n_els, NLIMBS, N), dtype=np.int64)
-    x[:, NLIMBS - 1, :] = rng.integers(0, 126, size=(n_els, N))
-    x[:, :, 0] = (1 << 16) - 1
-    x[:, NLIMBS - 1, 0] = 125
-    x[:, :, 1] = (1 << 15) - 1
-    x[:, NLIMBS - 1, 1] = ((1 << 262) - 1) >> (15 * (NLIMBS - 1))
-    x[:, :, 2] = 0
-    vals = L.to_ints(np.moveaxis(x, 1, 0))
-    assert max(int(v) for v in vals.reshape(-1)) < L.STD_BOUND
-    assert int(vals[0, 1]) == L.STD_BOUND - 1
-    return x
+    < 2^16): lane 0 the value 2^262-1 with every low limb as large as the
+    bound allows, lane 1 the value 2^262-1 canonical, lane 2 zero, lanes 3..
+    random lazy limbs (`samples.bounded_limbs`)."""
+    return np.stack([SM.bounded_limbs(rng, *PINNED, N) for _ in range(n_els)])
+
+
+@pytest.mark.parametrize("vmax, lmax", [PINNED, (1 << 261, 1 << 17),
+                                        (1 << 270, 1 << 26)],
+                         ids=["pins", "scan-loop", "load-limit"])
+def test_bounded_limbs_reach_their_edges(vmax, lmax):
+    """The shared input generator: every value below vmax and limb below
+    lmax, lanes 0 and 1 at vmax - 1 (every low limb of lane 0 within 2^15
+    of lmax, lane 1 canonical), lane 2 zero."""
+    rng = np.random.default_rng(vmax.bit_length() + lmax.bit_length())
+    x = SM.bounded_limbs(rng, vmax, lmax, 64)
+    assert x.shape == (NLIMBS, 64) and x.min() >= 0 and x.max() < lmax
+    vals = [int(v) for v in L.to_ints(x)]
+    assert max(vals) < vmax
+    assert vals[0] == vals[1] == vmax - 1 and vals[2] == 0
+    assert int(x[:-1, 0].min()) >= lmax - (1 << 15)
+    assert int(x[:, 1].max()) < 1 << 15
 
 
 def host_fn(lib, key):
@@ -265,6 +273,28 @@ def test_loops_through_the_host_kernels(host_card):
     with FK.kernel_mode():
         ref = GLV.shamir_scalar_mul(p, w)
     assert bool(same_point(got, ref).all())
+
+
+def test_scan_loop_through_the_host_kernels(host_card, monkeypatch):
+    """`config.unroll_static_loops` off: the scan-form Miller loop on a
+    3-digit schedule through the per-op kernels at the bounds the loop
+    really feeds them (unpinned step and line outputs, `fq12_sq`'s
+    template), by value against the plain scan loop."""
+    from bn254_tpu_torch import config as C
+
+    monkeypatch.setattr(C, "DEFAULT", C.DEFAULT.replace(
+        unroll_static_loops=False))
+    g1 = [HC.g1_mul(HC.G1_ONE, 5 + i) for i in range(2)]
+    g2 = [HC.g2_mul(HC.G2_ONE, 9 + i) for i in range(2)]
+    px, py = CV.g1_batch_to_device_affine(g1)
+    qx, qy = CV.g2_batch_to_device_affine(g2)
+    naf = (1, 0, -1)
+    f = M.miller_loop(px, py, qx, qy, naf=naf)
+    assert host_card(fq12_sq=3, g2_dbl_step=3, g2_add_step=4,
+                     fq12_mul_line=7)
+    with FK.kernel_mode():
+        want = M._miller_loop_scan(px, py, qx, qy, naf=naf)
+    assert bool(T.fq12_eq(f, want).all())
 
 
 def same_point(a, b):

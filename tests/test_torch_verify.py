@@ -96,15 +96,44 @@ def test_fused_tier_matches_jax(batch):
     assert not bool(BV.verify_batch_fused(*to_port(*tampered), pw))
 
 
+# the fused check's launches per key at B=4 in each loop form (the knob
+# `config.unroll_static_loops`); the keys left out are 0
+_MILLER_UNROLLED = {"miller_dbl_body": 65, "miller_add_body": 23}
+_MILLER_SCAN = {"g2_dbl_step": 65, "g2_add_step": 23, "fq12_mul_line": 88,
+                "fq12_sq": 65}
+FUSED_CHECK_LAUNCHES = {
+    True: {
+        **_MILLER_UNROLLED,  # NAF + 2 Frobenius
+        "expu_step": 69, "expu_sq2": 24,  # 3 exp_u x 23 / 8 windows
+        # the B+1 = 5 row product tree 3, the easy part 2, three exp_u
+        # tables 3, the hard part 13; the tables 3 and the hard part 4
+        "fq12_mul": 21, "fq12_cyc_sq": 7,
+        # two Fp inversions (to affine, fq12_inv), p - 2 in 3-bit windows:
+        # 66 nonzero and 18 zero each
+        "el_pow_step_mul": 132, "el_pow_step_sq": 36,
+        "glv_dbl_add": BITS // 2,  # one ladder step per weight-half bit
+    },
+    # the scan forms: one launch per Miller step op, per exp_u window two
+    # cyclotomic squares and one product (3 x 31 windows); the powers and
+    # the GLV ladder leaf by leaf
+    False: {**_MILLER_SCAN, "fq12_mul": 21 + 93, "fq12_cyc_sq": 7 + 3 * 62},
+}
+
+
 @pytest.mark.isolated
-def test_kernel_composition_matches_jax(batch, monkeypatch):
+@pytest.mark.parametrize("unroll", [True, False])
+def test_kernel_composition_matches_jax(batch, monkeypatch, unroll):
     """Kernels forced on (`tower._on_card`): the fused and adaptive tiers
-    run the card's composition (every Fq12 op, power, GLV ladder step,
-    Miller digit and exp_u window through `fused_op`, the fallback through
-    pair2) with the plain bodies, and give JAX's answers. JAX's adaptive
-    tier on the tampered batch rejects in its fused check (above) and gives
-    its fallback's bools, which tests/test_torch_independent.py holds to
-    EXPECTED against `verify_batch_independent_staged`."""
+    run the card's composition in each configuration of
+    `config.unroll_static_loops` (every Fq12 op and the Miller loop's
+    digits or step ops through `fused_op`; under the knob also every power,
+    GLV ladder step and exp_u window, the fallback through pair2, without
+    it the stacked fallback) with the plain bodies, and give JAX's answers.
+    JAX's adaptive tier on the tampered batch rejects in its fused check
+    (above) and gives its fallback's bools, which
+    tests/test_torch_independent.py holds to EXPECTED against
+    `verify_batch_independent_staged`."""
+    from bn254_tpu_torch import config as C
     from bn254_tpu_torch.kernels import fused as FK
     from test_torch_independent import EXPECTED
 
@@ -115,27 +144,26 @@ def test_kernel_composition_matches_jax(batch, monkeypatch):
         calls[key] += 1
         return fused_op(fn, key, *args)
 
+    monkeypatch.setattr(C, "DEFAULT", C.DEFAULT.replace(
+        unroll_static_loops=unroll))
     monkeypatch.setattr(T, "_on_card", lambda els: True)
     monkeypatch.setattr(FK, "fused_op", counted)
     good, tampered, _, pw = batch
     assert bool(BV.verify_batch_fused(*to_port(*good), pw))
-    assert calls == {
-        "miller_dbl_body": 65, "miller_add_body": 23,  # NAF + 2 Frobenius
-        "miller_dbl_body2": 0, "miller_add_body2": 0,  # independent tier only
-        "expu_step": 69, "expu_sq2": 24,  # 3 exp_u x 23 / 8 windows
-        # the B+1 = 5 row product tree 3, the easy part 2, three exp_u
-        # tables 3, the hard part 13; the tables 3 and the hard part 4
-        "fq12_mul": 21, "fq12_sq": 0, "fq12_cyc_sq": 7,
-        # two Fp inversions (to affine, fq12_inv), p - 2 in 3-bit windows:
-        # 66 nonzero and 18 zero each
-        "el_pow_step_mul": 132, "el_pow_step_sq": 36,
-        "glv_dbl_add": BITS // 2,  # one ladder step per weight-half bit
-    }
+    assert calls == {**dict.fromkeys(FK.KERNELS, 0),
+                     **FUSED_CHECK_LAUNCHES[unroll]}
+    calls.update(dict.fromkeys(calls, 0))
     got = BV.verify_batch_adaptive(*to_port(*tampered), weights=pw)
     assert got.tolist() == EXPECTED
-    # + the fused check; its independent fallback runs pair2
-    assert calls["miller_dbl_body"] == 2 * 65
-    assert (calls["miller_dbl_body2"], calls["miller_add_body2"]) == (65, 23)
+    # the fused check, then the independent fallback: pair2 under the
+    # knob, else the two pairs stacked through the scan-form Miller loop
+    pair2 = (calls["miller_dbl_body2"], calls["miller_add_body2"])
+    if unroll:
+        assert calls["miller_dbl_body"] == 65 and pair2 == (65, 23)
+    else:
+        assert {k: calls[k] for k in _MILLER_SCAN} == {
+            k: 2 * v for k, v in _MILLER_SCAN.items()}
+        assert pair2 == (0, 0)
 
 
 def test_weight_forms_are_validated():
