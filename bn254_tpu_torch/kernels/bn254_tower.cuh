@@ -255,19 +255,21 @@ BN_FN BN_INLINE void fp_one(Fp& r) {
 }
 
 // a in [0, 2p) -> its canonical value in [0, p)
-BN_FN BN_NOINLINE void fp_canon(Fp& r, const Fp& a) {
+BN_FN BN_INLINE void fp_canon_limbs(uint32_t r[kLimbs], const uint32_t a[kLimbs]) {
   uint32_t d[kLimbs];
   uint32_t borrow = 0u;
 #pragma unroll
   for (int i = 0; i < kLimbs; ++i) {
-    const uint32_t v = a.l[i] + (1u << kLimbBits) - p_limb(i) - borrow;
+    const uint32_t v = a[i] + (1u << kLimbBits) - p_limb(i) - borrow;
     d[i] = v & kMask;
     borrow = 1u - (v >> kLimbBits);
   }
   const uint32_t keep = 0u - borrow;  // all ones where a < p
 #pragma unroll
-  for (int i = 0; i < kLimbs; ++i) r.l[i] = (a.l[i] & keep) | (d[i] & ~keep);
+  for (int i = 0; i < kLimbs; ++i) r[i] = (a[i] & keep) | (d[i] & ~keep);
 }
+
+BN_FN BN_NOINLINE void fp_canon(Fp& r, const Fp& a) { fp_canon_limbs(r.l, a.l); }
 
 // a == 0 mod p, for a in [0, 2p)
 BN_FN BN_INLINE bool fp_is_zero(const Fp& a) {
@@ -808,13 +810,6 @@ BN_FN BN_INLINE void expu_sq2(Fq12& out, const Fq12& acc) {
   Fq12 x;
   fq12_cyc_sq(x, acc);
   fq12_cyc_sq(out, x);
-}
-
-// expu_step: acc^4 * m
-BN_FN BN_INLINE void expu_step(Fq12& out, const Fq12& acc, const Fq12& m) {
-  Fq12 x;
-  expu_sq2(x, acc);
-  fq12_mul(out, x, m);
 }
 
 }  // namespace bn254

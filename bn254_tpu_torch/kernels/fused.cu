@@ -31,32 +31,58 @@
 // with the plain version BY CANONICAL VALUE plus the bound check, not limb
 // for limb (chip_smoke.py and tests/test_torch_fused_host.py compare so).
 //
-// Design: one thread per lane, 64-thread blocks (8,193 Miller lanes fill
-// 129 blocks, about one per SM, for the digit bodies and for the scan form's
-// step ops alike; the two-pair bodies of the independent tier at 4,096
-// tuples fill 64, half the SMs). The step ops (g2_dbl_step, g2_add_step,
-// fq12_mul_line) are the same device functions the digit bodies chain, one
-// launch each, so the scan form pays a launch and an HBM round trip of f, T
-// and the line per step. The Fq12 accumulator and the temporaries
-// live in local memory; the Fq2-level functions and the leaf are not
-// inlined, which keeps the nvcc build in seconds. The limb layout makes
-// each lane's limb loads coalesced across a warp.
+// Design, the cooperative kernels (miller_dbl_body, expu_step): a group of
+// G threads per lane. Their bodies are level schedules
+// (kernels/coop_schedule.py, generated into coop_schedule.cuh): each level
+// is a set of independent Fp operations (a CIOS product, an input load, or
+// one thread's chain of additions) that read only what earlier levels
+// wrote. Thread g of the group runs operations g, g + G, ... of a level,
+// then the group synchronises (__syncwarp for G <= 32, __syncthreads for a
+// 64-thread group). A lane's values live in shared memory, one slot of 9
+// words (two 15-bit limbs each) per Fp, reused once dead: 91 slots
+// (3.3 KB) for miller_dbl_body, 108 (3.9 KB) for expu_step. The products
+// of one product depth share a level (5 such levels for miller_dbl_body,
+// 4 for expu_step), the leaf stays cios with its operands in registers
+// (80 registers, no stack, no spills), and results agree with the
+// one-thread bodies by canonical value. G comes from the lane count and
+// the card's SM count (kCoopRule below): 64 for the one-lane final
+// exponentiation, 8 for 4,096 and 8,193 lanes. What bounds them now: at
+// 8,193 lanes the instruction rate of the leaves (64 lanes a SM, 12
+// blocks a SM by registers, shared memory allows 8 blocks of 8 lanes); at
+// one lane the latency of the levels, most of them chains of additions
+// whose carries run limb by limb.
 //
-// What bounds it: per lane a body does 3-172 leaf multiplies of 648 32-bit
-// multiply-adds each and moves (n_in + n_out) x 18 x 8 bytes, so the INT32
-// rate is the nominal bound; at one thread per lane and one lane for the
-// shared final exponentiation, latency of the dependent leaf chain is what
-// the one-lane kernels actually pay.
+// Design, the other kernels: one thread per lane, 64-thread blocks (8,193
+// Miller lanes fill 129 blocks, about one per SM, for the digit bodies and
+// for the scan form's step ops alike; the two-pair bodies of the
+// independent tier at 4,096 tuples fill 64, half the SMs). The step ops
+// (g2_dbl_step, g2_add_step, fq12_mul_line) are the same device functions
+// the digit bodies chain, one launch each, so the scan form pays a launch
+// and an HBM round trip of f, T and the line per step. The Fq12
+// accumulator and the temporaries live in local memory; the Fq2-level
+// functions and the leaf are not inlined, which keeps the nvcc build in
+// seconds. The limb layout makes each lane's limb loads coalesced across a
+// warp.
+//
+// What bounds them: per lane a body does 3-172 leaf multiplies of 648
+// 32-bit multiply-adds each and moves (n_in + n_out) x 18 x 8 bytes, so
+// the INT32 rate is the nominal bound; at one thread per lane, latency of
+// the dependent leaf chain is what these kernels actually pay.
 //
 // Under a host compiler (no __CUDACC__) the file instead exports
-// bn254_host_<key>(in, out, n), the same lane bodies in a plain loop, which
-// tests/test_torch_fused_host.py builds with g++ and holds against the
-// plain torch bodies.
+// bn254_host_<key>(in, out, n), the same lane bodies in a plain loop (the
+// cooperative ones level by level, the group's threads in turn, also as
+// bn254_host_<key>_g with a given G), which tests/test_torch_fused_host.py
+// and tests/test_torch_coop.py build with g++ and hold against the plain
+// torch bodies.
 
 #include "bn254_tower.cuh"
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
+#else
+#include <algorithm>
+#include <vector>
 #endif
 
 namespace bn254 {
@@ -100,21 +126,6 @@ BN_FN BN_INLINE Fp* els(T& x) {
 template <typename T>
 BN_FN BN_INLINE const Fp* els(const T& x) {
   return reinterpret_cast<const Fp*>(&x);
-}
-
-// inputs (f, t, xp, yp) -> outputs (f, t)
-BN_FN BN_INLINE void lane_miller_dbl_body(const int64_t* in, int64_t* out,
-                                          int64_t n, int64_t e) {
-  Fq12 f, fo;
-  ProjG2 t, to;
-  Fp xp, yp;
-  load_els(els(f), 12, 0, in, n, e);
-  load_els(els(t), 6, 12, in, n, e);
-  load_els(&xp, 1, 18, in, n, e);
-  load_els(&yp, 1, 19, in, n, e);
-  miller_dbl_body(fo, to, f, t, xp, yp);
-  store_els(out, 0, els(fo), 12, n, e);
-  store_els(out, 12, els(to), 6, n, e);
 }
 
 // inputs (f, t, qx, qy, xp, yp) -> outputs (f, t)
@@ -179,16 +190,6 @@ BN_FN BN_INLINE void lane_miller_add_body2(const int64_t* in, int64_t* out,
   miller_add_body2(fo, to, f, t, qx, qy, xp0, yp0, ca, cb, cc, xp1, yp1);
   store_els(out, 0, els(fo), 12, n, e);
   store_els(out, 12, els(to), 6, n, e);
-}
-
-// inputs (acc, m) -> acc^4 * m
-BN_FN BN_INLINE void lane_expu_step(const int64_t* in, int64_t* out,
-                                    int64_t n, int64_t e) {
-  Fq12 acc, m, o;
-  load_els(els(acc), 12, 0, in, n, e);
-  load_els(els(m), 12, 12, in, n, e);
-  expu_step(o, acc, m);
-  store_els(out, 0, els(o), 12, n, e);
 }
 
 // inputs (acc) -> acc^4
@@ -302,6 +303,189 @@ BN_FN BN_INLINE void lane_g2_add_step(const int64_t* in, int64_t* out,
 
 }  // namespace bn254
 
+// ---------------------------------------------------------------------------
+// The lane-cooperative kernels: miller_dbl_body and expu_step, G threads per
+// lane over the level schedules of coop_schedule.cuh
+// ---------------------------------------------------------------------------
+
+#ifdef __CUDACC__
+#define BN_TABLE static __device__ const
+#define BN_COOP __device__ __forceinline__
+#else
+#define BN_TABLE static const
+#define BN_COOP inline
+#endif
+
+// the instantiated group sizes (threads per lane)
+#define BN254_COOP_GROUPS(X) X(4) X(8) X(16) X(32) X(64)
+
+#include "coop_schedule.cuh"
+
+namespace bn254 {
+
+// op kinds, chain step codes and encodings of kernels/coop_schedule.py
+enum : uint32_t { kOpMul = 0u, kOpLoad = 1u, kOpLin = 2u };
+enum : uint32_t {
+  kStepSet = 0u, kStepAdd, kStepSub, kStepRsub, kStepZero, kStepDbl
+};
+constexpr uint32_t kNoSlot = 0x3FFFu, kNoEl = 0xFFFFu;
+constexpr int kStepSlotBits = 13;
+constexpr int kSlotWords = 9;  // an Fp in a slot: two 15-bit limbs a word
+
+// The group size G for n lanes on a card of `sms` SMs, by L = n / sms
+// lanes per SM (rounded up): the row of the smallest max_lanes_per_sm that
+// L does not exceed. Each row is the G that was fastest where it was
+// measured (chip_smoke.py's coop_sweep, every G at 1, 2, 4, 8, 15, 32 and
+// 63 lanes per SM; NVIDIA H100 80GB HBM3, 700.00 W), with each boundary
+// between two measured widths. miller_dbl_body, ms per launch: G=64 at 1
+// and 2 lanes a SM (0.060, 0.067; G=32 0.064, 0.072); G=32 at 4 and 8
+// (0.073, 0.087; G=64 0.081, 0.139; G=16 0.097, 0.099); G=16 at 15
+// (0.111; G=32 0.151, G=8 0.158); G=8 at 32 (4,096 lanes: 0.173; G=16
+// 0.193, G=4 0.264) and at 63 (8,193 lanes: 0.308, 4 % above G=4's 0.295,
+// which is 1.5x slower at 32). expu_step orders the same way but at 63,
+// where G=16 is 7 % faster than G=8. Bigger groups idle more threads in
+// each level's last round; smaller ones leave the SM's schedulers waiting
+// on the leaf's dependent carries.
+struct CoopRule {
+  int64_t max_lanes_per_sm;
+  int group;
+};
+constexpr CoopRule kCoopRule[] = {
+    {3, 64}, {11, 32}, {23, 16}, {int64_t(1) << 40, 8}};
+constexpr int kCoopRules = sizeof(kCoopRule) / sizeof(kCoopRule[0]);
+
+inline int coop_group(int64_t n, int sms) {
+  const int64_t per_sm = (n + sms - 1) / sms;
+  for (int i = 0; i < kCoopRules - 1; ++i)
+    if (per_sm <= kCoopRule[i].max_lanes_per_sm) return kCoopRule[i].group;
+  return kCoopRule[kCoopRules - 1].group;
+}
+
+BN_COOP uint32_t tab(const uint16_t* p) {
+#ifdef __CUDA_ARCH__
+  return __ldg(p);
+#else
+  return *p;
+#endif
+}
+
+BN_COOP void slot_get(uint32_t r[kLimbs], const uint32_t* st, uint32_t slot) {
+  const uint32_t* w = st + slot * kSlotWords;
+#pragma unroll
+  for (int j = 0; j < kSlotWords; ++j) {
+    const uint32_t v = w[j];
+    r[2 * j] = v & 0xFFFFu;
+    r[2 * j + 1] = v >> 16;
+  }
+#ifdef BN254_CHECK_BOUNDS
+  for (int i = 0; i < kLimbs; ++i) BN_CHECK(r[i] <= kMask);  // written, carried
+#endif
+}
+
+BN_COOP void slot_put(uint32_t* st, uint32_t slot, const uint32_t r[kLimbs]) {
+  uint32_t* w = st + slot * kSlotWords;
+#pragma unroll
+  for (int j = 0; j < kSlotWords; ++j) w[j] = r[2 * j] | (r[2 * j + 1] << 16);
+}
+
+// a chain of additions (coop_schedule.py, LIN): each step is fp_add's or
+// fp_sub's result, as fold_2p(lhs + (2p - rhs)) for a difference, which is
+// fp_sub's value and so its (carried) limbs
+BN_COOP void coop_chain(Fp& acc, const uint16_t* steps, uint32_t len,
+                        const uint32_t* st) {
+  for (uint32_t s = 0; s < len; ++s) {
+    const uint32_t w = tab(steps + s);
+    const uint32_t code = w >> kStepSlotBits;
+    if (code == kStepZero) {
+      fp_zero(acc);
+      continue;
+    }
+    uint32_t x[kLimbs];
+    if (code == kStepDbl) {
+#pragma unroll
+      for (int i = 0; i < kLimbs; ++i) x[i] = acc.l[i];
+    } else {
+      slot_get(x, st, w & ((1u << kStepSlotBits) - 1u));
+    }
+    if (code == kStepSet) {
+#pragma unroll
+      for (int i = 0; i < kLimbs; ++i) acc.l[i] = x[i];
+      continue;
+    }
+    const uint32_t swap = 0u - static_cast<uint32_t>(code == kStepRsub);
+    const uint32_t neg =
+        0u - static_cast<uint32_t>(code == kStepSub || code == kStepRsub);
+    uint32_t sum[kLimbs];
+    uint32_t borrow = 0u, carry = 0u;
+#pragma unroll
+    for (int i = 0; i < kLimbs; ++i) {
+      const uint32_t lhs = (acc.l[i] & ~swap) | (x[i] & swap);
+      const uint32_t rhs = (x[i] & ~swap) | (acc.l[i] & swap);
+      const uint32_t v = p2_limb(i) + (1u << kLimbBits) - rhs - borrow;
+      borrow = 1u - (v >> kLimbBits);
+      const uint32_t term = ((v & kMask) & neg) | (rhs & ~neg);
+      const uint32_t t = lhs + term + carry;
+      sum[i] = t & kMask;
+      carry = t >> kLimbBits;
+    }
+    fp_fold_2p(acc, sum);  // lhs + term < 4p
+  }
+}
+
+// op k of schedule S on lane e, whose slots are st
+template <class S>
+BN_COOP void coop_op(int k, uint32_t* st, const int64_t* in, int64_t* out,
+                     int64_t n, int64_t e) {
+  const uint16_t* op = S::ops() + 4 * k;
+  const uint32_t w0 = tab(op), gout = tab(op + 1);
+  const uint32_t a = tab(op + 2), b = tab(op + 3);
+  const uint32_t kind = w0 >> 14, slot = w0 & kNoSlot;
+  Fp r;
+  if (kind == kOpLin) {
+    coop_chain(r, S::steps() + a, b, st);
+  } else {
+    uint32_t x[kLimbs], y[kLimbs];
+    if (kind == kOpLoad) {  // input El a: carried, then fp_load
+      uint32_t c = 0u;
+#pragma unroll
+      for (int i = 0; i < kLimbs; ++i) {
+        const uint32_t v =
+            static_cast<uint32_t>(in[(a * kLimbs + i) * n + e]) + c;
+        x[i] = v & kMask;
+        c = v >> kLimbBits;
+        y[i] = rmodp_limb(i);
+      }
+      BN_CHECK(c == 0u);  // value < 2^270
+    } else {
+      slot_get(x, st, a);
+      slot_get(y, st, b);
+    }
+    cios(r.l, x, y);
+    fp_check(r);
+  }
+  if (slot != kNoSlot) slot_put(st, slot, r.l);
+  if (gout != kNoEl) {
+    uint32_t c[kLimbs];
+    fp_canon_limbs(c, r.l);
+#pragma unroll
+    for (int i = 0; i < kLimbs; ++i) out[(gout * kLimbs + i) * n + e] = c[i];
+  }
+}
+
+}  // namespace bn254
+
+// the group sizes the rule can pick, into out[0..cap); returns their number
+extern "C" int bn254_coop_groups(int* out, int cap) {
+  for (int i = 0; i < bn254::kCoopRules && i < cap; ++i)
+    out[i] = bn254::kCoopRule[i].group;
+  return bn254::kCoopRules;
+}
+
+// the group size the launchers pick for n lanes on `sms` SMs
+extern "C" int bn254_coop_group(int64_t n, int sms) {
+  return bn254::coop_group(n, sms);
+}
+
 #ifdef __CUDACC__
 
 namespace {
@@ -324,6 +508,122 @@ constexpr int kThreads = 64;
     key##_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,                \
                    static_cast<cudaStream_t>(stream)>>>(in, out, n);          \
     return static_cast<int>(cudaGetLastError());                              \
+  }
+
+// -- the cooperative kernels: kCoopThreads threads a block, kCoopThreads / G
+// lanes, each lane's slots in dynamic shared memory
+constexpr int kCoopThreads = 64;
+
+template <int G>
+__device__ __forceinline__ void coop_sync() {
+  if constexpr (G <= 32) {
+    __syncwarp();  // a group never straddles a warp; every thread syncs
+  } else {
+    __syncthreads();
+  }
+}
+
+template <class S, int G>
+__global__ void __launch_bounds__(kCoopThreads)
+    coop_kernel(const int64_t* __restrict__ in, int64_t* __restrict__ out,
+                int64_t n) {
+  extern __shared__ uint32_t coop_slots[];
+  constexpr int kLanes = kCoopThreads / G;
+  const int lane = threadIdx.x / G, g = threadIdx.x % G;
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * kLanes + lane;
+  uint32_t* st = coop_slots + lane * S::kLaneWords;
+  const uint16_t* levels = S::levels();
+  for (int v = 0; v < S::kLevels; ++v) {
+    if (e < n) {
+      const int end = bn254::tab(levels + v + 1);
+      for (int k = bn254::tab(levels + v) + g; k < end; k += G)
+        bn254::coop_op<S>(k, st, in, out, n, e);
+    }
+    coop_sync<G>();
+  }
+}
+
+template <class S, int G>
+constexpr size_t coop_smem() {
+  return sizeof(uint32_t) * (kCoopThreads / G) * S::kLaneWords;
+}
+
+template <class S, int G>
+cudaError_t coop_allow_smem() {
+  static const cudaError_t rc = cudaFuncSetAttribute(
+      coop_kernel<S, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(coop_smem<S, G>()));
+  return rc;
+}
+
+template <class S, int G>
+int coop_launch(const int64_t* in, int64_t* out, int64_t n,
+                cudaStream_t stream) {
+  const cudaError_t rc = coop_allow_smem<S, G>();
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  constexpr int kLanes = kCoopThreads / G;
+  const int64_t blocks = (n + kLanes - 1) / kLanes;
+  coop_kernel<S, G><<<static_cast<unsigned>(blocks), kCoopThreads,
+                      coop_smem<S, G>(), stream>>>(in, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// info[0..5]: resident blocks per SM, shared bytes per block, lanes per
+// block, registers per thread, local (stack) bytes per thread, threads
+template <class S, int G>
+int coop_info(int* info) {
+  cudaError_t rc = coop_allow_smem<S, G>();
+  cudaFuncAttributes fa;
+  if (rc == cudaSuccess) rc = cudaFuncGetAttributes(&fa, coop_kernel<S, G>);
+  int blocks = 0;
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, coop_kernel<S, G>, kCoopThreads, coop_smem<S, G>());
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  info[0] = blocks;
+  info[1] = static_cast<int>(coop_smem<S, G>());
+  info[2] = kCoopThreads / G;
+  info[3] = fa.numRegs;
+  info[4] = static_cast<int>(fa.localSizeBytes);
+  info[5] = kCoopThreads;
+  return 0;
+}
+
+inline int coop_sms() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return sms;
+}
+
+// bn254_<key>(in, out, n, stream): G by the rule; bn254_<key>_g with a given
+// G (a G that is not instantiated is cudaErrorInvalidValue); bn254_<key>_info
+#define BN254_COOP_CASE_LAUNCH(G) \
+  case G:                         \
+    return coop_launch<S, G>(in, out, n, static_cast<cudaStream_t>(stream));
+#define BN254_COOP_CASE_INFO(G) \
+  case G:                       \
+    return coop_info<S, G>(info);
+#define BN254_COOP_KERNEL(key, Sched)                                        \
+  extern "C" int bn254_##key##_g(const int64_t* in, int64_t* out, int64_t n, \
+                                 int group, void* stream) {                  \
+    using S = bn254::Sched;                                                  \
+    if (n <= 0) return 0;                                                    \
+    switch (group) { BN254_COOP_GROUPS(BN254_COOP_CASE_LAUNCH) }             \
+    return static_cast<int>(cudaErrorInvalidValue);                         \
+  }                                                                          \
+  extern "C" int bn254_##key(const int64_t* in, int64_t* out, int64_t n,     \
+                             void* stream) {                                 \
+    const int sms = coop_sms();                                              \
+    if (sms <= 0) return static_cast<int>(cudaErrorNoDevice);                \
+    return bn254_##key##_g(in, out, n, bn254::coop_group(n, sms), stream);   \
+  }                                                                          \
+  extern "C" int bn254_##key##_info(int group, int* info) {                  \
+    using S = bn254::Sched;                                                  \
+    switch (group) { BN254_COOP_GROUPS(BN254_COOP_CASE_INFO) }               \
+    return static_cast<int>(cudaErrorInvalidValue);                          \
   }
 
 #else
@@ -355,13 +655,53 @@ extern "C" void bn254_host_cios(const int64_t* a, const int64_t* b,
   }
 }
 
+
+// bn254_host_<key>_g(in, out, n, G): the cooperative schedule on the host,
+// each level's ops in the order of the group's threads g = 0..G-1, each
+// thread's share g, g + G, ...; the slots start poisoned (limbs 0xFFFF),
+// so a read of a slot no earlier level wrote fails a bound check.
+// bn254_host_<key>(in, out, n) takes G by the rule for a 132-SM card.
+template <class S>
+int coop_host(const int64_t* in, int64_t* out, int64_t n, int group) {
+  bn254_bound_faults = 0;
+#define BN254_COOP_CASE(G) case G:
+  switch (group) {
+    BN254_COOP_GROUPS(BN254_COOP_CASE)
+    break;
+    default:
+      return -1;
+  }
+#undef BN254_COOP_CASE
+  std::vector<uint32_t> st(S::kLaneWords);
+  const uint16_t* levels = S::levels();
+  for (int64_t e = 0; e < n; ++e) {
+    std::fill(st.begin(), st.end(), 0xFFFFFFFFu);
+    for (int v = 0; v < S::kLevels; ++v)
+      for (int g = 0; g < group; ++g)
+        for (int k = levels[v] + g; k < levels[v + 1]; k += group)
+          bn254::coop_op<S>(k, st.data(), in, out, n, e);
+  }
+  return bn254_bound_faults;
+}
+
+constexpr int kHostSms = 132;  // the H100's
+
+#define BN254_COOP_KERNEL(key, Sched)                                        \
+  extern "C" int bn254_host_##key##_g(const int64_t* in, int64_t* out,       \
+                                      int64_t n, int group) {                \
+    return coop_host<bn254::Sched>(in, out, n, group);                       \
+  }                                                                          \
+  extern "C" int bn254_host_##key(const int64_t* in, int64_t* out,           \
+                                  int64_t n) {                               \
+    return coop_host<bn254::Sched>(in, out, n,                               \
+                                   bn254::coop_group(n, kHostSms));          \
+  }
+
 #endif
 
-BN254_FUSED_KERNEL(miller_dbl_body)
 BN254_FUSED_KERNEL(miller_add_body)
 BN254_FUSED_KERNEL(miller_dbl_body2)
 BN254_FUSED_KERNEL(miller_add_body2)
-BN254_FUSED_KERNEL(expu_step)
 BN254_FUSED_KERNEL(expu_sq2)
 BN254_FUSED_KERNEL(fq12_mul)
 BN254_FUSED_KERNEL(fq12_sq)
@@ -372,3 +712,5 @@ BN254_FUSED_KERNEL(glv_dbl_add)
 BN254_FUSED_KERNEL(fq12_mul_line)
 BN254_FUSED_KERNEL(g2_dbl_step)
 BN254_FUSED_KERNEL(g2_add_step)
+BN254_COOP_KERNEL(miller_dbl_body, CoopMillerDblBody)
+BN254_COOP_KERNEL(expu_step, CoopExpuStep)

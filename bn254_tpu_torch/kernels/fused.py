@@ -238,3 +238,57 @@ def _launch(key: str, packed: torch.Tensor, out: torch.Tensor) -> None:
         rc = kern(packed.data_ptr(), out.data_ptr(), packed.shape[2], stream)
     if rc != 0:
         raise RuntimeError(f"{key} kernel launch failed: cudaError {rc}")
+
+
+# the lane-cooperative kernels (fused.cu, "Design"): G threads per lane,
+# G picked by the launcher from the lane count and the card's SM count
+COOP = ("miller_dbl_body", "expu_step")
+COOP_INSTANCES = (4, 8, 16, 32, 64)  # the G of fused.cu's BN254_COOP_GROUPS
+COOP_INFO = ("blocks_per_sm", "smem_per_block", "lanes_per_block",
+             "registers", "stack_bytes", "threads_per_block")
+
+
+def coop_groups(lib=None) -> tuple[int, ...]:
+    """The group sizes the launchers' rule can pick (fused.cu's
+    kCoopRule), from the CUDA library or a host build `lib`."""
+    lib = lib or build.library("fused")
+    buf = (ctypes.c_int * 16)()
+    n = lib.bn254_coop_groups(buf, 16)
+    return tuple(buf[:n])
+
+
+def coop_group(n: int, sms: int, lib=None) -> int:
+    """The group size the launchers pick for n lanes on `sms` SMs."""
+    lib = lib or build.library("fused")
+    fn = lib.bn254_coop_group
+    fn.argtypes = [ctypes.c_int64, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(n, sms)
+
+
+def launch_group(key: str, packed: torch.Tensor, out: torch.Tensor,
+                 group: int) -> None:
+    """The cooperative kernel of `key` with `group` threads per lane (not
+    counted in `launches`); raises if that launch fails."""
+    fn = getattr(build.library("fused"), f"{KERNELS[key].symbol}_g")
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dev = packed.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(packed.data_ptr(), out.data_ptr(), packed.shape[2], group,
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"{key} kernel launch with G={group} failed: "
+                           f"cudaError {rc}")
+
+
+def coop_info(key: str, group: int) -> dict:
+    """Occupancy, shared memory and registers of one instantiation."""
+    info = (ctypes.c_int * len(COOP_INFO))()
+    fn = getattr(build.library("fused"), f"{KERNELS[key].symbol}_info")
+    rc = fn(ctypes.c_int(group), info)
+    if rc != 0:
+        raise RuntimeError(f"{key} G={group}: cudaError {rc}")
+    return dict(zip(COOP_INFO, info))

@@ -10,7 +10,12 @@ Phases, each of which exits non-zero on failure:
 2. The kernel build: nvcc compiles bn254_tpu_torch/kernels/montmul.cu and
    fused.cu (with their shared header bn254_tower.cuh), one compiler per
    source, started together; build seconds and ptxas registers, stack and
-   spills per kernel.
+   spills per kernel; for each instantiation (G = 4 ... 64 threads per lane)
+   of the two cooperative kernels, miller_dbl_body and expu_step, resident
+   blocks per SM, shared memory per block, lanes per block, registers and
+   stack (cudaOccupancyMaxActiveBlocksPerMultiprocessor and
+   cudaFuncGetAttributes, through fused.cu's C exports), and the group size
+   the launcher's rule picks at 1, `independent` and batch + 1 lanes.
 3. Kernel vs plain.
    - montmul against its plain torch version, bit for bit, on random limbs
      at the main path's widest shape (54 x batch lanes), a lane count that is
@@ -25,8 +30,10 @@ Phases, each of which exits non-zero on failure:
      carried, zero), a lane count that is no multiple of the 64-thread
      block, and an unbatched (18,) operand; the two-pair Miller bodies also
      with their constant line triple (ca, cb, cc) unbatched in its real
-     place, between batched operands. Phase 6 adds every further lane count
-     and input bound the paths launched a kernel at.
+     place, between batched operands. The cooperative kernels are held so
+     at every group size the rule can pick, besides the path's own launch.
+     Phase 6 adds every further lane count and input bound the paths
+     launched a kernel at.
 4. The main path through the user entry points: `api.batch_sign` makes
    the signatures of `batch` distinct messages under `keys` keys (8 held
    against the host oracle), then `api.batch_verify(mode="adaptive")`
@@ -78,10 +85,14 @@ Phases, each of which exits non-zero on failure:
    its stages (hash, Miller, final exp) for pair2, the stacked form and the
    stacked form with unroll_static_loops=False, in turns; the kernels the
    independent tier shares with the adaptive path at the independent run's
-   widths and launch counts.
+   widths and launch counts; ms per launch (50 back to back) of every
+   instantiation of the cooperative kernels at 1 lane, 2, 4, 8 and 15
+   lanes per SM, `independent` and batch + 1 lanes (the `coop_sweep` line), the
+   one-lane launch also under torch.profiler.
 
 It prints a kernels JSON line with every fused kernel on the path that
-launches it, each with that path's name and launch count (`adaptive`; the
+launches it (the cooperative ones with the group size at each width the
+path runs them, `groups`), each with that path's name and launch count (`adaptive`; the
 two-pair bodies `independent`; fq12_sq and the three step ops
 `adaptive_no_unroll`), the shared kernels' rows for the independent path on
 the line before the card's, and as its last line
@@ -184,7 +195,9 @@ def ptxas_summary(log: str) -> list[str]:
         m = re.search(r"Used (\d+) registers", line)
         if m and entry and "kernel" in entry:
             stack, st, ld = props.get(entry, ("?", "?", "?"))
-            short = re.sub(r"^_Z\w*?\d+(\w+_kernel)\w*$", r"\1", entry)
+            coop = re.search(r"coop_kernelIN5bn254\d+(\w+?)ELi(\d+)E", entry)
+            short = (f"coop_kernel<{coop.group(1)}, {coop.group(2)}>" if coop
+                     else re.sub(r"^_Z\w*?\d+(\w+_kernel)\w*$", r"\1", entry))
             out.append(f"{short}: {m.group(1)} registers, {stack} B stack "
                        f"frame, {st} B spill stores, {ld} B spill loads")
     return out
@@ -257,6 +270,14 @@ def main() -> int:
     for lib in ("montmul", "fused"):
         for line in ptxas_summary(build.build_log.get(lib, "")):
             print(f"build: ptxas: {line}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    coop_picks = FK.coop_groups()  # the group sizes the rule can pick
+    for key in FK.COOP:
+        for g in FK.COOP_INSTANCES:
+            print(f"build: coop {key} G={g}: "
+                  + json.dumps(FK.coop_info(key, g)))
+    print(f"build: coop rule on {sms} SMs picks G in {list(coop_picks)}: "
+          + json.dumps({n: FK.coop_group(n, sms) for n in (1, NI, B + 1)}))
 
     # -- 3. kernel vs plain ----------------------------------------------------
     gen = torch.Generator(device="cpu").manual_seed(args.seed)
@@ -360,30 +381,53 @@ def main() -> int:
     def in_bounds(args_):
         return tuple((e.vmax, e.lmax) for e in L.tree_leaves(args_))
 
+    def with_group(key, args_, group):
+        """`fused_op`'s CUDA path with the cooperative kernel of `key`
+        launched at `group` threads per lane (not counted)."""
+        body = FK.signature(key)[0]
+        template = FK._out_struct(body, in_bounds(args_), args_)
+        packed, batch = FK.pack(L.tree_leaves(args_))
+        out = torch.empty((FK.arity(key)[1], NLIMBS, packed.shape[2]),
+                          dtype=torch.int64, device=dev)
+        if packed.shape[2]:
+            FK.launch_group(key, packed, out, group)
+        rows = iter(out)
+        return L.tree_map(lambda t: L.El(
+            next(rows).reshape((NLIMBS,) + batch), t.vmax, t.lmax), template)
+
     def compare(key, tag, args_):
         body = FK.signature(key)[0]
-        got = FK.fused_op(body, key, *args_)
+        gots = {"": FK.fused_op(body, key, *args_)}
+        if key in FK.COOP:
+            for g in coop_picks:
+                gots[f" at G={g}"] = with_group(key, args_, g)
         with plain_leaf():
             want = body(*args_)
         torch.cuda.synchronize()
-        gl, wl = L.tree_leaves(got), L.tree_leaves(want)
-        err = 0
-        for g, w in zip(gl, wl):
-            if (g.vmax, g.lmax) != (w.vmax, w.lmax):
-                fail(f"{key}: learned bounds differ from the plain body's")
-            if int(g.arr.min()) < 0 or int(g.arr.max()) >= g.lmax:
-                fail(f"{key} on {tag}: a limb is outside [0, {g.lmax})")
-            if not bool(L.lt_const(g, g.vmax).all()):
-                fail(f"{key} on {tag}: a value is not below its declared bound")
-            cg, cw = L.canon(g).arr, L.canon(w).arr
-            err = max(err, int((cg - cw).abs().max()) if cg.numel() else 0)
-        max_err[key] = max(max_err[key], err)
+        wl = L.tree_leaves(want)
+        for how, got in gots.items():
+            gl = L.tree_leaves(got)
+            err = 0
+            for g, w in zip(gl, wl):
+                if (g.vmax, g.lmax) != (w.vmax, w.lmax):
+                    fail(f"{key}: learned bounds differ from the plain body's")
+                if int(g.arr.min()) < 0 or int(g.arr.max()) >= g.lmax:
+                    fail(f"{key}{how} on {tag}: a limb is outside "
+                         f"[0, {g.lmax})")
+                if not bool(L.lt_const(g, g.vmax).all()):
+                    fail(f"{key}{how} on {tag}: a value is not below its "
+                         "declared bound")
+                cg, cw = L.canon(g).arr, L.canon(w).arr
+                err = max(err, int((cg - cw).abs().max()) if cg.numel() else 0)
+            max_err[key] = max(max_err[key], err)
+            if err:
+                fail(f"{key}{how} differs from its plain body on {tag} by value")
         checked[key].add((gl[0].arr[0].numel(), in_bounds(args_)))
-        if err:
-            fail(f"{key} differs from its plain body on {tag} by value")
         shape = tuple(gl[0].arr.shape)
+        groups = (f" (the path's launch and G = {list(coop_picks)})"
+                  if key in FK.COOP else "")
         print(f"kernel vs plain: {key}: {tag}: {len(gl)} x {shape} equal by "
-              f"canonical value, within the declared bounds")
+              f"canonical value, within the declared bounds{groups}")
 
     with torch.inference_mode():
         for key in FK.KERNELS:
@@ -482,8 +526,9 @@ def main() -> int:
     print(f"sign: {B} signatures in {sign_s:.2f} s; {min(8, B)} agree with "
           "the host oracle")
 
+    main_widths = {}  # the (lanes, bounds) of the main path's launches
     reset_counts()
-    with launches_recorded(run_launches):
+    with launches_recorded(run_launches, main_widths):
         t0 = time.perf_counter()
         ok = api.batch_verify(msgs, sigs, pks, mode="adaptive")
         torch.cuda.synchronize()
@@ -857,6 +902,43 @@ def main() -> int:
               "runs): " + json.dumps(
                   [{k: round(v, 4) for k, v in r.items()} for r in runs]))
 
+    # the cooperative kernels: ms per launch of every instantiation at 1
+    # lane, at 2, 4, 8 and 15 lanes per SM (the rule's steps), at the
+    # independent tier's and the Miller rows' widths; the one-lane launch
+    # of the rule's G also under torch.profiler
+    coop_sweep = []
+    with torch.inference_mode():
+        for key in FK.COOP:
+            for n in sorted({1, 2 * sms, 4 * sms, 8 * sms, 15 * sms, NI,
+                             B + 1}):
+                packed, _ = FK.pack(L.tree_leaves(body_inputs(key, n)))
+                out = torch.empty((FK.arity(key)[1], NLIMBS, n),
+                                  dtype=torch.int64, device=dev)
+                ms = {}
+                for g in FK.COOP_INSTANCES:
+                    FK.launch_group(key, packed, out, g)
+                    ms[g] = events_ms(torch, lambda: FK.launch_group(
+                        key, packed, out, g), reps=50)[1]
+                row = {"key": key, "lanes": n, "per_sm": -(-n // sms),
+                       "rule_group": FK.coop_group(n, sms),
+                       "ms_by_group": ms}
+                if n == 1:
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        for _ in range(50):
+                            FK._launch(key, packed, out)
+                        torch.cuda.synchronize()
+                    dev_us = sum(getattr(e, "self_device_time_total", 0)
+                                 for e in prof.key_averages()
+                                 if "coop_kernel" in e.key)
+                    row["profiler_ms"] = dev_us / 1e3 / 50 if dev_us else None
+                coop_sweep.append(row)
+                print(f"coop {key}: {n} lanes ({row['per_sm']} a SM), ms per "
+                      f"launch by G {json.dumps(ms)}, the rule's G="
+                      f"{row['rule_group']}"
+                      + (f", profiler {row['profiler_ms']} ms a launch"
+                         if n == 1 else ""))
+    print(json.dumps({"coop_sweep": coop_sweep}))
+
     # per kernel: ms per launch at its path's width, bound, plain ms
     kernels = []
     a_c, b_c = a_w.contiguous(), b_w.contiguous()
@@ -881,9 +963,9 @@ def main() -> int:
                           dtype=torch.int64, device=dev)
         FK._launch(key, packed, out)
         return events_ms(torch, lambda: FK._launch(key, packed, out),
-                         reps=20)[1]
+                         reps=50)[1]
 
-    def kernel_row(key, n, path, n_launches):
+    def kernel_row(key, n, path, n_launches, widths):
         """The kernels-line row of `key` at n lanes: ms per launch, plain
         ms, bound."""
         body = FK.signature(key)[0]
@@ -903,7 +985,7 @@ def main() -> int:
               f"products per lane, {ms:.4f} ms per launch ({wrap_ms:.4f} ms "
               f"through fused_op), plain {plain_ms:.3f} ms, bound "
               f"{max(t_bytes, t_ops):.6f} ms")
-        return {
+        row = {
             "name": key, "route": "cuda",
             "source": "bn254_tpu_torch/kernels/fused.cu",
             "replaces": FK.KERNELS[key].replaces, "path": path,
@@ -912,6 +994,10 @@ def main() -> int:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None,
         }
+        if key in FK.COOP:  # threads per lane at each width the path runs
+            row["groups"] = {str(w): FK.coop_group(w, sms)
+                             for w in sorted({n, *widths[key]})}
+        return row
 
     # each kernel on the path that runs it: the two-pair bodies on the
     # independent tier, fq12_sq (only inside the Miller bodies on the
@@ -924,19 +1010,19 @@ def main() -> int:
         for key in FK.KERNELS:
             if key in PAIR2:
                 kernels.append(kernel_row(key, WIDTHS[key], "independent",
-                                          ind_launches[key]))
+                                          ind_launches[key], lanes(ind_widths)))
                 continue
             if key in SCAN_MILLER_LAUNCHES:
                 kernels.append(kernel_row(key, WIDTHS[key],
                                           "adaptive_no_unroll",
-                                          scan_launches[key]))
+                                          scan_launches[key], {}))
                 continue
-            kernels.append(
-                kernel_row(key, WIDTHS[key], "adaptive", main_launches[key]))
+            kernels.append(kernel_row(key, WIDTHS[key], "adaptive",
+                                      main_launches[key], lanes(main_widths)))
             if key in ind_widths:
                 shared.append(kernel_row(
                     key, max(n for n, _ in ind_widths[key]), "independent",
-                    ind_launches[key]))
+                    ind_launches[key], lanes(ind_widths)))
     print(json.dumps({"independent_path_kernels": shared}))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,196 @@
+"""The lane-cooperative kernels (`miller_dbl_body`, `expu_step`) off the card.
+
+Their level schedules (`kernels/coop_schedule.py`, generated into
+`coop_schedule.cuh`) are checked twice:
+
+* in Python: the tables run level by level on Python ints (Montgomery
+  products), each level reading only slots that earlier levels wrote and
+  writing no slot another op of the level reads; every product of the
+  formula computed exactly once (117 and 90, plus one load per input El,
+  no two products of the same operands); every output written once, equal
+  to the plain body by value;
+* through the g++ build of `fused.cu` (`-DBN254_CHECK_BOUNDS`), whose host
+  launchers run the same `coop_op` over each level with the group's
+  threads g = 0..G-1 in turn: for every group size the kernels are built
+  for, equal to the plain body by canonical value with no failed bound
+  check, on pinned and boundary inputs (`utils/samples.bounded_limbs`).
+"""
+
+import ctypes
+import pathlib
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+
+from bn254_tpu_torch.constants import MONT_R, NLIMBS, P
+from bn254_tpu_torch.fields import limbs as L
+from bn254_tpu_torch.kernels import coop_schedule as CS
+from bn254_tpu_torch.kernels import fused as FK
+from bn254_tpu_torch.utils import convert as CV
+from bn254_tpu_torch.utils import samples as SM
+
+SRC = pathlib.Path(FK.__file__).resolve().parent / "fused.cu"
+GROUPS = FK.COOP_INSTANCES
+PINNED = (L.STD_BOUND, 1 << 16)
+N = 5
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed")
+    out = tmp_path_factory.mktemp("coop_host") / "coop_host.so"
+    r = subprocess.run(
+        [gxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-DBN254_CHECK_BOUNDS",
+         "-x", "c++", str(SRC), "-o", str(out)],
+        capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    return ctypes.CDLL(str(out))
+
+
+def inputs(key, bounds, seed, n=N):
+    """(n_in, 18, n) limbs within `bounds`, boundary lanes first."""
+    rng = np.random.default_rng(seed)
+    return np.stack([SM.bounded_limbs(rng, *bounds, n)
+                     for _ in range(FK.arity(key)[0])])
+
+
+def plain_values(key, packed, bounds):
+    """The plain body's outputs (CPU `fused_op`) as ints mod p, per El."""
+    args = FK.args_from_leaves(
+        key, [CV.from_numpy(x, *bounds) for x in packed])
+    out = FK.fused_op(FK.signature(key)[0], key, *args)
+    return [[int(v) % P for v in L.to_ints(e)] for e in L.tree_leaves(out)]
+
+
+def test_header_is_current():
+    assert CS.HEADER.read_text() == CS.header_text(), (
+        "run python -m bn254_tpu_torch.kernels.coop_schedule")
+
+
+def run_table(s, ins):
+    """The schedule on Python ints (LOAD: the input mod p; MUL: a b / R),
+    level by level; fails on a read of a slot no earlier level wrote, a
+    slot written twice in a level or read there by another op, and an
+    output written twice. Returns (outputs, operand pairs of the MULs)."""
+    rinv = pow(MONT_R, -1, P)
+    slots, written, outs, pairs = {}, {}, [None] * s.n_out, []
+    mask = (1 << CS.SLOT_BITS) - 1
+    for lv in range(s.levels):
+        wrote, read = {}, {}
+        for i, op in enumerate(s.ops[s.level_first[lv]:s.level_first[lv + 1]]):
+            def rd(x):
+                assert written.get(x, lv) < lv and x not in wrote, (lv, x)
+                read.setdefault(x, set()).add(i)
+                return slots[x]
+
+            if op.kind == CS.LOAD:
+                v = ins[op.a] % P
+            elif op.kind == CS.MUL:
+                a, b = rd(op.a), rd(op.b)
+                pairs.append(frozenset((a, b)))
+                v = a * b * rinv % P
+            else:
+                v = None
+                for w in s.steps[op.a:op.a + op.b]:
+                    code, x = w >> CS.SLOT_BITS, w & mask
+                    if code == CS.ZERO:
+                        v = 0
+                    elif code == CS.DBL:
+                        v = 2 * v % P
+                    elif code == CS.SET:
+                        v = rd(x)
+                    else:
+                        y = rd(x)
+                        v = {CS.ADD: v + y, CS.SUB: v - y, CS.RSUB: y - v}[code] % P
+            if op.out != CS.NONE:
+                assert op.out not in wrote, (lv, op.out)
+                wrote[op.out] = i
+                slots[op.out] = v
+            if op.gout != CS.NONE:
+                assert outs[op.gout] is None
+                outs[op.gout] = v
+        for x, i in wrote.items():
+            assert read.get(x, set()) <= {i}, (lv, x)  # only its own operand
+            written[x] = lv
+    return outs, pairs
+
+
+@pytest.mark.parametrize("key", sorted(CS.BODIES))
+def test_schedule_levels_and_products(key):
+    s = CS.schedule(key)
+    n_in, n_out = FK.arity(key)
+    assert (s.n_in, s.n_out) == (n_in, n_out)
+    assert s.products == CS.BODIES[key][1]
+    assert sum(op.kind == CS.LOAD for op in s.ops) == n_in
+    assert sorted(op.a for op in s.ops if op.kind == CS.LOAD) == list(range(n_in))
+    assert s.level_first[0] == 0 and s.level_first[-1] == len(s.ops)
+    packed = inputs(key, PINNED, 3)
+    want = plain_values(key, packed, PINNED)
+    for lane in range(N):
+        outs, pairs = run_table(s, [int(v) for v in L.to_ints(packed[:, :, lane].T)])
+        assert outs == [w[lane] for w in want]
+        assert len(pairs) == s.products
+    # lanes 0-2 are edges (equal or zero inputs); on random ones no two
+    # products have the same operands
+    assert len(set(pairs)) == s.products
+
+
+def host(lib, key):
+    fn = getattr(lib, f"bn254_host_{key}_g")
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_host(lib, key, group, packed, bounds):
+    n_out = FK.arity(key)[1]
+    n = packed.shape[2]
+    got = np.zeros((n_out, NLIMBS, n), dtype=np.int64)
+    inp = np.ascontiguousarray(packed)
+    faults = host(lib, key)(inp.ctypes.data, got.ctypes.data, n, group)
+    assert faults == 0, f"{faults} bound checks failed"
+    assert int(got.max()) < 1 << 15 and int(got.min()) >= 0
+    want = plain_values(key, packed, bounds)
+    for i in range(n_out):
+        vals = [int(v) for v in L.to_ints(got[i])]
+        assert all(v < P for v in vals)  # canonical
+        assert vals == want[i], (key, group, i)
+
+
+@pytest.mark.parametrize("group", GROUPS)
+@pytest.mark.parametrize("key", sorted(CS.BODIES))
+def test_host_schedule_matches_plain(host_lib, key, group):
+    check_host(host_lib, key, group, inputs(key, PINNED, group), PINNED)
+
+
+@pytest.mark.parametrize("key", sorted(CS.BODIES))
+def test_host_schedule_carries_lazy_inputs(host_lib, key):
+    """Inputs beyond the pins (values < 2^262, limbs < 2^20), carried by
+    the LOAD ops, with the rule's group for N lanes."""
+    bounds = (1 << 262, 1 << 20)
+    fn = getattr(host_lib, f"bn254_host_{key}")
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
+    packed = inputs(key, bounds, 11)
+    got = np.zeros((FK.arity(key)[1], NLIMBS, N), dtype=np.int64)
+    assert fn(np.ascontiguousarray(packed).ctypes.data, got.ctypes.data, N) == 0
+    want = plain_values(key, packed, bounds)
+    assert [[int(v) for v in L.to_ints(g)] for g in got] == want
+
+
+def test_group_rule(host_lib):
+    """The rule picks only instantiated sizes, covers one lane (the shared
+    final exponentiation), 4,096 (the independent tier) and 8,193 lanes
+    (the B=8192 Miller rows) on a 132-SM card, takes no larger group for
+    more lanes, and the host refuses a size with no instantiation."""
+    picks = FK.coop_groups(host_lib)
+    assert set(picks) <= set(GROUPS)
+    by_n = [FK.coop_group(n, 132, host_lib) for n in (1, 132, 4096, 8193, 1 << 20)]
+    assert set(by_n) <= set(picks)
+    assert by_n == sorted(by_n, reverse=True)
+    packed = inputs("expu_step", PINNED, 0, n=1)
+    out = np.zeros((12, NLIMBS, 1), dtype=np.int64)
+    assert host(host_lib, "expu_step")(packed.ctypes.data, out.ctypes.data, 1, 12) == -1
