@@ -716,9 +716,10 @@ BN_FN BN_NOINLINE void g1_add(G1& r, const G1& p1, const G1& p2) {
 
 // ---------------------------------------------------------------------------
 // the fused bodies (pairing/miller.py, pairing/final_exp.py, fields/limbs.py,
-// curve/glv.py); the Fq12 ops above are bodies of their own. The Miller
-// bodies keep the plain bodies' order: square, step, line fold, then (the
-// two-pair bodies) the constant line.
+// curve/glv.py); the Fq12 ops above are bodies of their own. The
+// cooperative bodies (miller_dbl_body, expu_step and the two-pair Miller
+// bodies) are level schedules over the same functions instead (fused.cu,
+// coop_schedule.py).
 // ---------------------------------------------------------------------------
 
 // the window of the fused pow chain (fields/limbs.py:_POW_WINDOW)
@@ -745,17 +746,6 @@ BN_FN BN_INLINE void glv_dbl_add(G1& out, const G1& acc, const G1& sel) {
   g1_add(out, d, sel);
 }
 
-// miller_dbl_body: f^2 * tangent line, T <- 2T
-BN_FN BN_INLINE void miller_dbl_body(Fq12& f_out, ProjG2& t_out,
-                                     const Fq12& f, const ProjG2& t,
-                                     const Fp& xp, const Fp& yp) {
-  Fq12 sq;
-  Line ln;
-  fq12_sq(sq, f);
-  dbl_step(t_out, ln, t, xp, yp);
-  fq12_mul_line(f_out, sq, ln.a, ln.b, ln.c);
-}
-
 // miller_add_body: f * chord line, T <- T + Q
 BN_FN BN_INLINE void miller_add_body(Fq12& f_out, ProjG2& t_out,
                                      const Fq12& f, const ProjG2& t,
@@ -764,45 +754,6 @@ BN_FN BN_INLINE void miller_add_body(Fq12& f_out, ProjG2& t_out,
   Line ln;
   add_step(t_out, ln, t, qx, qy, xp, yp);
   fq12_mul_line(f_out, f, ln.a, ln.b, ln.c);
-}
-
-// the second pair's line from host-precomputed constants:
-// f * (ca yP1 + cb xP1 w + cc v w)
-BN_FN BN_INLINE void const_line_fold(Fq12& f_out, const Fq12& f,
-                                     const Fq2& ca, const Fq2& cb,
-                                     const Fq2& cc, const Fp& xp1,
-                                     const Fp& yp1) {
-  Fq2 a1, b1;
-  fq2_mul_fp(a1, ca, yp1);
-  fq2_mul_fp(b1, cb, xp1);
-  fq12_mul_line(f_out, f, a1, b1, cc);
-}
-
-// miller_dbl_body2: f^2 * tangent line at (P0, T) * constant line at P1,
-// T <- 2T (one shared squaring for both pairs of a tuple)
-BN_FN BN_INLINE void miller_dbl_body2(Fq12& f_out, ProjG2& t_out,
-                                      const Fq12& f, const ProjG2& t,
-                                      const Fp& xp0, const Fp& yp0,
-                                      const Fq2& ca, const Fq2& cb,
-                                      const Fq2& cc, const Fp& xp1,
-                                      const Fp& yp1) {
-  Fq12 g;
-  miller_dbl_body(g, t_out, f, t, xp0, yp0);
-  const_line_fold(f_out, g, ca, cb, cc, xp1, yp1);
-}
-
-// miller_add_body2: f * chord line at (P0, T, Q) * constant line at P1,
-// T <- T + Q
-BN_FN BN_INLINE void miller_add_body2(Fq12& f_out, ProjG2& t_out,
-                                      const Fq12& f, const ProjG2& t,
-                                      const Fq2& qx, const Fq2& qy,
-                                      const Fp& xp0, const Fp& yp0,
-                                      const Fq2& ca, const Fq2& cb,
-                                      const Fq2& cc, const Fp& xp1,
-                                      const Fp& yp1) {
-  Fq12 g;
-  miller_add_body(g, t_out, f, t, qx, qy, xp0, yp0);
-  const_line_fold(f_out, g, ca, cb, cc, xp1, yp1);
 }
 
 // expu_sq2: acc^4 by two cyclotomic squarings

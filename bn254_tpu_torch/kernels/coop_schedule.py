@@ -1,9 +1,11 @@
 """Level schedules of the lane-cooperative kernels of `fused.cu`.
 
-`miller_dbl_body` and `expu_step` run as a group of G threads per lane
-(`fused.cu`, "Design"). Their bodies are traced here, Fp operation by Fp
-operation, from formulas that mirror `bn254_tower.cuh`'s functions line for
-line (`fq12_sq`, `dbl_step`, `fq12_mul_line`; `fq12_cyc_sq`, `fq12_mul`),
+`miller_dbl_body`, `expu_step`, `miller_dbl_body2` and `miller_add_body2`
+run as a group of G threads per lane (`fused.cu`, "Design"). Their bodies
+are traced here, Fp operation by Fp operation, from formulas that mirror
+`bn254_tower.cuh`'s functions line for line (`fq12_sq`, `dbl_step`,
+`add_step`, `fq12_mul_line`; `fq12_cyc_sq`, `fq12_mul`) and, for the second
+pair's constant line, the plain bodies (`pairing/miller.py:_dbl_body2_impl`),
 and cut into *levels*: sets of operations that read only what earlier
 levels wrote. The group runs a level with thread g taking operations g,
 g + G, ... and synchronises between levels.
@@ -235,6 +237,26 @@ class Tower:
         lc = sub(self.fq2_double(yyz), small(x3, 3))
         return (ox, oy, oz), (la, lb, lc)
 
+    def add_step(self, t, qx, qy, xp, yp):
+        x, y, z = t
+        m, sq, add, sub = self.fq2_mul, self.fq2_sq, self.fq2_add, self.fq2_sub
+        theta, lam = sub(y, m(qy, z)), sub(x, m(qx, z))
+        cc, dd = sq(theta), sq(lam)
+        ee, ff, gg = m(lam, dd), m(z, cc), m(x, dd)
+        hh = sub(add(ee, ff), self.fq2_double(gg))
+        la = self.fq2_mul_fp(self.fq2_neg(lam), yp)
+        lb = self.fq2_mul_fp(theta, xp)
+        lc = sub(m(lam, qy), m(theta, qx))
+        ox = m(lam, hh)
+        oy = sub(m(theta, sub(gg, hh)), m(ee, y))
+        return (ox, oy, m(z, ee)), (la, lb, lc)
+
+    def const_line_fold(self, f, ca, cb, cc, xp1, yp1):
+        """f * (ca yP1 + cb xP1 w + cc v w): the second pair's line from
+        host-precomputed constants."""
+        return self.fq12_mul_line(f, self.fq2_mul_fp(ca, yp1),
+                                  self.fq2_mul_fp(cb, xp1), cc)
+
 
 def _flat(tree):
     if isinstance(tree, Node):
@@ -260,6 +282,42 @@ def trace_miller_dbl_body():
     return tr, _flat(f_out) + _flat(t_out)
 
 
+def trace_miller_dbl_body2():
+    """(f, t, xp0, yp0, ca, cb, cc, xp1, yp1) -> (f^2 * tangent line *
+    constant line, 2t): 28 -> 18 Els."""
+    tr = Trace()
+    tw = Tower(tr)
+    it = iter([tr.load(i) for i in range(28)])
+    f = _fq12(it)
+    t = tuple((next(it), next(it)) for _ in range(3))
+    xp0, yp0 = next(it), next(it)
+    ca, cb, cc = ((next(it), next(it)) for _ in range(3))
+    xp1, yp1 = next(it), next(it)
+    sq = tw.fq12_sq(f)
+    t_out, (la, lb, lc) = tw.dbl_step(t, xp0, yp0)
+    g = tw.fq12_mul_line(sq, la, lb, lc)
+    f_out = tw.const_line_fold(g, ca, cb, cc, xp1, yp1)
+    return tr, _flat(f_out) + _flat(t_out)
+
+
+def trace_miller_add_body2():
+    """(f, t, qx, qy, xp0, yp0, ca, cb, cc, xp1, yp1) -> (f * chord line *
+    constant line, t + q): 32 -> 18 Els."""
+    tr = Trace()
+    tw = Tower(tr)
+    it = iter([tr.load(i) for i in range(32)])
+    f = _fq12(it)
+    t = tuple((next(it), next(it)) for _ in range(3))
+    qx, qy = (next(it), next(it)), (next(it), next(it))
+    xp0, yp0 = next(it), next(it)
+    ca, cb, cc = ((next(it), next(it)) for _ in range(3))
+    xp1, yp1 = next(it), next(it)
+    t_out, (la, lb, lc) = tw.add_step(t, qx, qy, xp0, yp0)
+    g = tw.fq12_mul_line(f, la, lb, lc)
+    f_out = tw.const_line_fold(g, ca, cb, cc, xp1, yp1)
+    return tr, _flat(f_out) + _flat(t_out)
+
+
 def trace_expu_step():
     """(acc, m) -> acc^4 * m by two cyclotomic squarings: 24 -> 12 Els."""
     tr = Trace()
@@ -273,6 +331,8 @@ def trace_expu_step():
 BODIES = {
     "miller_dbl_body": (trace_miller_dbl_body, 117),
     "expu_step": (trace_expu_step, 90),
+    "miller_dbl_body2": (trace_miller_dbl_body2, 160),
+    "miller_add_body2": (trace_miller_add_body2, 123),
 }
 
 
@@ -315,7 +375,8 @@ def _levels(roots, reads):
     """Level of each root op: as early as its operands allow, but the
     products of one product depth (the most products on a path from the
     inputs) share one level, so that a group runs them in as few rounds as
-    it can (5 product levels for miller_dbl_body, 4 for expu_step). Then each input is loaded in the last product
+    it can (from 3 for expu_step to 5 for miller_dbl_body2, loads
+    excluded). Then each input is loaded in the last product
     level before its first reader (loads are products), and each addition
     chain runs in the level just before its first reader: both keep fewer
     slots live."""

@@ -31,40 +31,40 @@
 // with the plain version BY CANONICAL VALUE plus the bound check, not limb
 // for limb (chip_smoke.py and tests/test_torch_fused_host.py compare so).
 //
-// Design, the cooperative kernels (miller_dbl_body, expu_step): a group of
-// G threads per lane. Their bodies are level schedules
-// (kernels/coop_schedule.py, generated into coop_schedule.cuh): each level
-// is a set of independent Fp operations (a CIOS product, an input load, or
-// one thread's chain of additions) that read only what earlier levels
-// wrote. Thread g of the group runs operations g, g + G, ... of a level,
-// then the group synchronises (__syncwarp for G <= 32, __syncthreads for a
-// 64-thread group). A lane's values live in shared memory, one slot of 9
-// words (two 15-bit limbs each) per Fp, reused once dead: 91 slots
-// (3.3 KB) for miller_dbl_body, 108 (3.9 KB) for expu_step. The products
-// of one product depth share a level (5 such levels for miller_dbl_body,
-// 4 for expu_step), the leaf stays cios with its operands in registers
-// (80 registers, no stack, no spills), and results agree with the
-// one-thread bodies by canonical value. G comes from the lane count and
-// the card's SM count (kCoopRule below): 64 for the one-lane final
-// exponentiation, 8 for 4,096 and 8,193 lanes. What bounds them now: at
-// 8,193 lanes the instruction rate of the leaves (64 lanes a SM, 12
-// blocks a SM by registers, shared memory allows 8 blocks of 8 lanes); at
-// one lane the latency of the levels, most of them chains of additions
-// whose carries run limb by limb.
+// Design, the cooperative kernels (miller_dbl_body, expu_step,
+// miller_dbl_body2, miller_add_body2): a group of G threads per lane. Their
+// bodies are level schedules (kernels/coop_schedule.py, generated into
+// coop_schedule.cuh): each level is a set of independent Fp operations (a
+// CIOS product, an input load, or one thread's chain of additions) that
+// read only what earlier levels wrote. Thread g of the group runs
+// operations g, g + G, ... of a level, then the group synchronises
+// (__syncwarp for G <= 32, __syncthreads for a 64-thread group). A lane's
+// values live in shared memory, one slot of 9 words (two 15-bit limbs each)
+// per Fp, reused once dead: 91, 108, 97 and 92 slots (3.3, 3.9, 3.5 and
+// 3.3 KB). The products of one product depth share a level (4, 3, 5 and 4
+// such levels, loads excluded), the leaf stays cios with its operands in
+// registers, and results agree with the plain bodies by canonical value.
+// The two-pair bodies keep the plain bodies' order (square, step, line
+// fold, then the constant line), and their constant triple (ca, cb, cc) is
+// read like any other input El: the wrapper's packing broadcasts it over
+// the lanes. G comes from the lane count and the card's SM count
+// (kCoopRule below): 64 for the one-lane final exponentiation, 8 for 4,096
+// and 8,193 lanes. What bounds them: at thousands of lanes the instruction
+// rate of the leaves; at one lane the latency of the levels, most of them
+// chains of additions whose carries run limb by limb.
 //
 // Design, the other kernels: one thread per lane, 64-thread blocks (8,193
-// Miller lanes fill 129 blocks, about one per SM, for the digit bodies and
-// for the scan form's step ops alike; the two-pair bodies of the
-// independent tier at 4,096 tuples fill 64, half the SMs). The step ops
-// (g2_dbl_step, g2_add_step, fq12_mul_line) are the same device functions
-// the digit bodies chain, one launch each, so the scan form pays a launch
-// and an HBM round trip of f, T and the line per step. The Fq12
+// Miller lanes fill 129 blocks, about one per SM, for miller_add_body and
+// for the scan form's step ops alike). The step ops (g2_dbl_step,
+// g2_add_step, fq12_mul_line) are the same device functions the digit
+// bodies chain, one launch each, so the scan form pays a launch and an HBM
+// round trip of f, T and the line per step. The Fq12
 // accumulator and the temporaries live in local memory; the Fq2-level
 // functions and the leaf are not inlined, which keeps the nvcc build in
 // seconds. The limb layout makes each lane's limb loads coalesced across a
 // warp.
 //
-// What bounds them: per lane a body does 3-172 leaf multiplies of 648
+// What bounds them: per lane a body does 3-80 leaf multiplies of 648
 // 32-bit multiply-adds each and moves (n_in + n_out) x 18 x 8 bytes, so
 // the INT32 rate is the nominal bound; at one thread per lane, latency of
 // the dependent leaf chain is what these kernels actually pay.
@@ -142,52 +142,6 @@ BN_FN BN_INLINE void lane_miller_add_body(const int64_t* in, int64_t* out,
   load_els(&xp, 1, 22, in, n, e);
   load_els(&yp, 1, 23, in, n, e);
   miller_add_body(fo, to, f, t, qx, qy, xp, yp);
-  store_els(out, 0, els(fo), 12, n, e);
-  store_els(out, 12, els(to), 6, n, e);
-}
-
-// inputs (f, t, xp0, yp0, ca, cb, cc, xp1, yp1) -> outputs (f, t); the
-// constant triple is one (18,) El each, broadcast over the lanes by the
-// wrapper's packing like any other operand
-BN_FN BN_INLINE void lane_miller_dbl_body2(const int64_t* in, int64_t* out,
-                                           int64_t n, int64_t e) {
-  Fq12 f, fo;
-  ProjG2 t, to;
-  Fq2 ca, cb, cc;
-  Fp xp0, yp0, xp1, yp1;
-  load_els(els(f), 12, 0, in, n, e);
-  load_els(els(t), 6, 12, in, n, e);
-  load_els(&xp0, 1, 18, in, n, e);
-  load_els(&yp0, 1, 19, in, n, e);
-  load_els(els(ca), 2, 20, in, n, e);
-  load_els(els(cb), 2, 22, in, n, e);
-  load_els(els(cc), 2, 24, in, n, e);
-  load_els(&xp1, 1, 26, in, n, e);
-  load_els(&yp1, 1, 27, in, n, e);
-  miller_dbl_body2(fo, to, f, t, xp0, yp0, ca, cb, cc, xp1, yp1);
-  store_els(out, 0, els(fo), 12, n, e);
-  store_els(out, 12, els(to), 6, n, e);
-}
-
-// inputs (f, t, qx, qy, xp0, yp0, ca, cb, cc, xp1, yp1) -> outputs (f, t)
-BN_FN BN_INLINE void lane_miller_add_body2(const int64_t* in, int64_t* out,
-                                           int64_t n, int64_t e) {
-  Fq12 f, fo;
-  ProjG2 t, to;
-  Fq2 qx, qy, ca, cb, cc;
-  Fp xp0, yp0, xp1, yp1;
-  load_els(els(f), 12, 0, in, n, e);
-  load_els(els(t), 6, 12, in, n, e);
-  load_els(els(qx), 2, 18, in, n, e);
-  load_els(els(qy), 2, 20, in, n, e);
-  load_els(&xp0, 1, 22, in, n, e);
-  load_els(&yp0, 1, 23, in, n, e);
-  load_els(els(ca), 2, 24, in, n, e);
-  load_els(els(cb), 2, 26, in, n, e);
-  load_els(els(cc), 2, 28, in, n, e);
-  load_els(&xp1, 1, 30, in, n, e);
-  load_els(&yp1, 1, 31, in, n, e);
-  miller_add_body2(fo, to, f, t, qx, qy, xp0, yp0, ca, cb, cc, xp1, yp1);
   store_els(out, 0, els(fo), 12, n, e);
   store_els(out, 12, els(to), 6, n, e);
 }
@@ -304,8 +258,9 @@ BN_FN BN_INLINE void lane_g2_add_step(const int64_t* in, int64_t* out,
 }  // namespace bn254
 
 // ---------------------------------------------------------------------------
-// The lane-cooperative kernels: miller_dbl_body and expu_step, G threads per
-// lane over the level schedules of coop_schedule.cuh
+// The lane-cooperative kernels: miller_dbl_body, expu_step,
+// miller_dbl_body2 and miller_add_body2, G threads per lane over the level
+// schedules of coop_schedule.cuh
 // ---------------------------------------------------------------------------
 
 #ifdef __CUDACC__
@@ -343,9 +298,14 @@ constexpr int kSlotWords = 9;  // an Fp in a slot: two 15-bit limbs a word
 // (0.111; G=32 0.151, G=8 0.158); G=8 at 32 (4,096 lanes: 0.173; G=16
 // 0.193, G=4 0.264) and at 63 (8,193 lanes: 0.308, 4 % above G=4's 0.295,
 // which is 1.5x slower at 32). expu_step orders the same way but at 63,
-// where G=16 is 7 % faster than G=8. Bigger groups idle more threads in
-// each level's last round; smaller ones leave the SM's schedulers waiting
-// on the leaf's dependent carries.
+// where G=16 is 7 % faster than G=8. The two-pair bodies order the same
+// way, every pick within 7 % of the best G (miller_dbl_body2 /
+// miller_add_body2): 0.079 / 0.054 at 1 lane (G=64); at 4 lanes a SM
+// miller_add_body2's G=32 0.069 against G=64's 0.066; at 32 (4,096 lanes)
+// G=8 0.222 / 0.161 (G=4 0.349 / 0.254, G=16 0.255 / 0.182); at 63 G=8
+// 0.395 / 0.296 against G=4's 0.390 / 0.278. Bigger groups idle more
+// threads in each level's last round; smaller ones leave the SM's
+// schedulers waiting on the leaf's dependent carries.
 struct CoopRule {
   int64_t max_lanes_per_sm;
   int group;
@@ -700,8 +660,6 @@ constexpr int kHostSms = 132;  // the H100's
 #endif
 
 BN254_FUSED_KERNEL(miller_add_body)
-BN254_FUSED_KERNEL(miller_dbl_body2)
-BN254_FUSED_KERNEL(miller_add_body2)
 BN254_FUSED_KERNEL(expu_sq2)
 BN254_FUSED_KERNEL(fq12_mul)
 BN254_FUSED_KERNEL(fq12_sq)
@@ -714,3 +672,5 @@ BN254_FUSED_KERNEL(g2_dbl_step)
 BN254_FUSED_KERNEL(g2_add_step)
 BN254_COOP_KERNEL(miller_dbl_body, CoopMillerDblBody)
 BN254_COOP_KERNEL(expu_step, CoopExpuStep)
+BN254_COOP_KERNEL(miller_dbl_body2, CoopMillerDblBody2)
+BN254_COOP_KERNEL(miller_add_body2, CoopMillerAddBody2)

@@ -1,4 +1,5 @@
-"""The lane-cooperative kernels (`miller_dbl_body`, `expu_step`) off the card.
+"""The lane-cooperative kernels (`miller_dbl_body`, `expu_step`,
+`miller_dbl_body2`, `miller_add_body2`) off the card.
 
 Their level schedules (`kernels/coop_schedule.py`, generated into
 `coop_schedule.cuh`) are checked twice:
@@ -6,17 +7,21 @@ Their level schedules (`kernels/coop_schedule.py`, generated into
 * in Python: the tables run level by level on Python ints (Montgomery
   products), each level reading only slots that earlier levels wrote and
   writing no slot another op of the level reads; every product of the
-  formula computed exactly once (117 and 90, plus one load per input El,
+  formula computed exactly once (117, 90, 160 and 123, plus one load per
+  input El,
   no two products of the same operands); every output written once, equal
   to the plain body by value;
 * through the g++ build of `fused.cu` (`-DBN254_CHECK_BOUNDS`), whose host
   launchers run the same `coop_op` over each level with the group's
   threads g = 0..G-1 in turn: for every group size the kernels are built
   for, equal to the plain body by canonical value with no failed bound
-  check, on pinned and boundary inputs (`utils/samples.bounded_limbs`).
+  check, on pinned and boundary inputs (`utils/samples.bounded_limbs`);
+  the two-pair bodies also with their constant line triple unbatched, as
+  `fused.pack` broadcasts it for the pair2 loop.
 """
 
 import ctypes
+import inspect
 import pathlib
 import shutil
 import subprocess
@@ -179,6 +184,34 @@ def test_host_schedule_carries_lazy_inputs(host_lib, key):
     assert fn(np.ascontiguousarray(packed).ctypes.data, got.ctypes.data, N) == 0
     want = plain_values(key, packed, bounds)
     assert [[int(v) for v in L.to_ints(g)] for g in got] == want
+
+
+@pytest.mark.parametrize("key", ["miller_dbl_body2", "miller_add_body2"])
+def test_host_schedule_with_unbatched_constants(host_lib, key):
+    """The constant line triple (ca, cb, cc) as unbatched (18,) Els between
+    batched operands, as the pair2 loop passes them: packed by
+    `fused.pack`, read by the schedule at every G, equal to the plain body
+    on the unbatched arguments."""
+    body = FK.signature(key)[0]
+    names = list(inspect.signature(body).parameters)
+    args = list(FK.args_from_leaves(
+        key, [CV.from_numpy(x, *PINNED) for x in inputs(key, PINNED, 17)]))
+    for j, name in enumerate(("ca", "cb", "cc")):
+        i = names.index(name)
+        args[i] = L.tree_map(
+            lambda e: L.El(e.arr[:, 3 + j % 2], e.vmax, e.lmax), args[i])
+        assert args[i].c0.arr.shape == (NLIMBS,)
+    packed, batch = FK.pack(L.tree_leaves(args))
+    assert batch == (N,)
+    packed = np.ascontiguousarray(packed.numpy())
+    with FK.kernel_mode():
+        want = [[int(v) % P for v in L.to_ints(e)]
+                for e in L.tree_leaves(body(*args))]
+    for group in GROUPS:
+        got = np.zeros((FK.arity(key)[1], NLIMBS, N), dtype=np.int64)
+        assert host(host_lib, key)(packed.ctypes.data, got.ctypes.data, N,
+                                   group) == 0
+        assert [[int(v) for v in L.to_ints(g)] for g in got] == want, group
 
 
 def test_group_rule(host_lib):
