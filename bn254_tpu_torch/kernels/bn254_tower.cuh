@@ -435,20 +435,6 @@ struct Fq12 {
   Fq6 c0, c1;
 };
 
-// Karatsuba over Fq6: 3 Fq6 products
-BN_FN BN_NOINLINE void fq12_mul(Fq12& r, const Fq12& a, const Fq12& b) {
-  Fq6 t0, t1, sa, sb;
-  fq6_mul(t0, a.c0, b.c0);
-  fq6_mul(t1, a.c1, b.c1);
-  fq6_add(sa, a.c0, a.c1);
-  fq6_add(sb, b.c0, b.c1);
-  fq6_mul(sa, sa, sb);  // t2
-  fq6_sub(sa, sa, t0);
-  fq6_sub(r.c1, sa, t1);
-  fq6_mul_by_v(t1, t1);
-  fq6_add(r.c0, t0, t1);
-}
-
 // complex squaring: t = c0 c1; c0' = (c0+c1)(c0 + v c1) - t - v t; c1' = 2t
 BN_FN BN_NOINLINE void fq12_sq(Fq12& r, const Fq12& a) {
   Fq6 t, u, x, y;
@@ -716,10 +702,10 @@ BN_FN BN_NOINLINE void g1_add(G1& r, const G1& p1, const G1& p2) {
 
 // ---------------------------------------------------------------------------
 // the fused bodies (pairing/miller.py, pairing/final_exp.py, fields/limbs.py,
-// curve/glv.py); the Fq12 ops above are bodies of their own. The
-// cooperative bodies (miller_dbl_body, expu_step and the two-pair Miller
-// bodies) are level schedules over the same functions instead (fused.cu,
-// coop_schedule.py).
+// curve/glv.py); fq12_sq, fq12_cyc_sq, fq12_mul_line and the step ops
+// above are bodies of their own. The cooperative bodies (the four Miller
+// digit bodies, expu_step and fq12_mul) are level schedules over the same
+// functions instead (fused.cu, coop_schedule.py).
 // ---------------------------------------------------------------------------
 
 // the window of the fused pow chain (fields/limbs.py:_POW_WINDOW)
@@ -744,16 +730,6 @@ BN_FN BN_INLINE void glv_dbl_add(G1& out, const G1& acc, const G1& sel) {
   G1 d;
   g1_double(d, acc);
   g1_add(out, d, sel);
-}
-
-// miller_add_body: f * chord line, T <- T + Q
-BN_FN BN_INLINE void miller_add_body(Fq12& f_out, ProjG2& t_out,
-                                     const Fq12& f, const ProjG2& t,
-                                     const Fq2& qx, const Fq2& qy,
-                                     const Fp& xp, const Fp& yp) {
-  Line ln;
-  add_step(t_out, ln, t, qx, qy, xp, yp);
-  fq12_mul_line(f_out, f, ln.a, ln.b, ln.c);
 }
 
 // expu_sq2: acc^4 by two cyclotomic squarings

@@ -1,11 +1,13 @@
 """Level schedules of the lane-cooperative kernels of `fused.cu`.
 
-`miller_dbl_body`, `expu_step`, `miller_dbl_body2` and `miller_add_body2`
-run as a group of G threads per lane (`fused.cu`, "Design"). Their bodies
-are traced here, Fp operation by Fp operation, from formulas that mirror
-`bn254_tower.cuh`'s functions line for line (`fq12_sq`, `dbl_step`,
-`add_step`, `fq12_mul_line`; `fq12_cyc_sq`, `fq12_mul`) and, for the second
-pair's constant line, the plain bodies (`pairing/miller.py:_dbl_body2_impl`),
+`miller_dbl_body`, `miller_add_body`, `expu_step`, `fq12_mul`,
+`miller_dbl_body2` and `miller_add_body2` run as a group of G threads per
+lane (`fused.cu`, "Design"). Their bodies are traced here, Fp operation by
+Fp operation, from formulas that mirror `bn254_tower.cuh`'s functions line
+for line (`fq12_sq`, `dbl_step`, `add_step`, `fq12_mul_line`;
+`fq12_cyc_sq`, `fq6_mul`) and, for `fq12_mul`'s Karatsuba over Fq6 and the
+second pair's constant line, the plain bodies (`fields/tower.py:
+_fq12_mul_impl`, `pairing/miller.py:_dbl_body2_impl`),
 and cut into *levels*: sets of operations that read only what earlier
 levels wrote. The group runs a level with thread g taking operations g,
 g + G, ... and synchronises between levels.
@@ -282,6 +284,20 @@ def trace_miller_dbl_body():
     return tr, _flat(f_out) + _flat(t_out)
 
 
+def trace_miller_add_body():
+    """(f, t, qx, qy, xp, yp) -> (f * chord line, t + q): 24 -> 18 Els."""
+    tr = Trace()
+    tw = Tower(tr)
+    it = iter([tr.load(i) for i in range(24)])
+    f = _fq12(it)
+    t = tuple((next(it), next(it)) for _ in range(3))
+    qx, qy = (next(it), next(it)), (next(it), next(it))
+    xp, yp = next(it), next(it)
+    t_out, (la, lb, lc) = tw.add_step(t, qx, qy, xp, yp)
+    f_out = tw.fq12_mul_line(f, la, lb, lc)
+    return tr, _flat(f_out) + _flat(t_out)
+
+
 def trace_miller_dbl_body2():
     """(f, t, xp0, yp0, ca, cb, cc, xp1, yp1) -> (f^2 * tangent line *
     constant line, 2t): 28 -> 18 Els."""
@@ -318,6 +334,15 @@ def trace_miller_add_body2():
     return tr, _flat(f_out) + _flat(t_out)
 
 
+def trace_fq12_mul():
+    """(a, b) -> a * b: 24 -> 12 Els."""
+    tr = Trace()
+    tw = Tower(tr)
+    it = iter([tr.load(i) for i in range(24)])
+    a, b = _fq12(it), _fq12(it)
+    return tr, _flat(tw.fq12_mul(a, b))
+
+
 def trace_expu_step():
     """(acc, m) -> acc^4 * m by two cyclotomic squarings: 24 -> 12 Els."""
     tr = Trace()
@@ -333,6 +358,8 @@ BODIES = {
     "expu_step": (trace_expu_step, 90),
     "miller_dbl_body2": (trace_miller_dbl_body2, 160),
     "miller_add_body2": (trace_miller_add_body2, 123),
+    "fq12_mul": (trace_fq12_mul, 54),
+    "miller_add_body": (trace_miller_add_body, 80),
 }
 
 
@@ -375,7 +402,7 @@ def _levels(roots, reads):
     """Level of each root op: as early as its operands allow, but the
     products of one product depth (the most products on a path from the
     inputs) share one level, so that a group runs them in as few rounds as
-    it can (from 3 for expu_step to 5 for miller_dbl_body2, loads
+    it can (from 1 for fq12_mul to 5 for miller_dbl_body2, loads
     excluded). Then each input is loaded in the last product
     level before its first reader (loads are products), and each addition
     chain runs in the level just before its first reader: both keep fewer

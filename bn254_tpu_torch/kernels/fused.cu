@@ -31,40 +31,42 @@
 // with the plain version BY CANONICAL VALUE plus the bound check, not limb
 // for limb (chip_smoke.py and tests/test_torch_fused_host.py compare so).
 //
-// Design, the cooperative kernels (miller_dbl_body, expu_step,
-// miller_dbl_body2, miller_add_body2): a group of G threads per lane. Their
-// bodies are level schedules (kernels/coop_schedule.py, generated into
-// coop_schedule.cuh): each level is a set of independent Fp operations (a
-// CIOS product, an input load, or one thread's chain of additions) that
-// read only what earlier levels wrote. Thread g of the group runs
-// operations g, g + G, ... of a level, then the group synchronises
-// (__syncwarp for G <= 32, __syncthreads for a 64-thread group). A lane's
-// values live in shared memory, one slot of 9 words (two 15-bit limbs each)
-// per Fp, reused once dead: 91, 108, 97 and 92 slots (3.3, 3.9, 3.5 and
-// 3.3 KB). The products of one product depth share a level (4, 3, 5 and 4
-// such levels, loads excluded), the leaf stays cios with its operands in
-// registers, and results agree with the plain bodies by canonical value.
-// The two-pair bodies keep the plain bodies' order (square, step, line
-// fold, then the constant line), and their constant triple (ca, cb, cc) is
-// read like any other input El: the wrapper's packing broadcasts it over
-// the lanes. G comes from the lane count and the card's SM count
-// (kCoopRule below): 64 for the one-lane final exponentiation, 8 for 4,096
-// and 8,193 lanes. What bounds them: at thousands of lanes the instruction
-// rate of the leaves; at one lane the latency of the levels, most of them
-// chains of additions whose carries run limb by limb.
+// Design, the cooperative kernels (miller_dbl_body, miller_add_body,
+// expu_step, fq12_mul, miller_dbl_body2, miller_add_body2): a group of G
+// threads per lane. Their bodies are level schedules
+// (kernels/coop_schedule.py, generated into coop_schedule.cuh): each level
+// is a set of independent Fp operations (a CIOS product, an input load, or
+// one thread's chain of additions) that read only what earlier levels
+// wrote. Thread g of the group runs operations g, g + G, ... of a level,
+// then the group synchronises (__syncwarp for G <= 32, __syncthreads for a
+// 64-thread group). A lane's values live in shared memory, one slot of 9
+// words (two 15-bit limbs each) per Fp, reused once dead: 91, 86, 108, 108,
+// 97 and 92 slots (3.3, 3.1, 3.9, 3.9, 3.5 and 3.3 KB). The products of one
+// product depth share a level (4, 4, 3, 1, 5 and 4 such levels, loads
+// excluded; fq12_mul's 54 products are one level), the leaf stays cios with
+// its operands in registers, and results agree with the plain bodies by
+// canonical value. The Miller bodies keep the plain bodies' order (the
+// square of a doubling digit, the step, the line fold, then the two-pair
+// bodies' constant line), and the two-pair bodies' constant triple (ca,
+// cb, cc) is read like any other input El: the wrapper's packing
+// broadcasts it over the lanes. G comes from the lane count and the card's
+// SM count (kCoopRule below): 64 for the one-lane final exponentiation and
+// the narrow end of the Fq12 product tree, 8 for 4,096 and 8,193 lanes.
+// What bounds them: at thousands of lanes the instruction rate of the
+// leaves; at one lane the latency of the levels, most of them chains of
+// additions whose carries run limb by limb.
 //
 // Design, the other kernels: one thread per lane, 64-thread blocks (8,193
-// Miller lanes fill 129 blocks, about one per SM, for miller_add_body and
-// for the scan form's step ops alike). The step ops (g2_dbl_step,
-// g2_add_step, fq12_mul_line) are the same device functions the digit
-// bodies chain, one launch each, so the scan form pays a launch and an HBM
-// round trip of f, T and the line per step. The Fq12
+// Miller lanes fill 129 blocks, about one per SM, for the scan form's step
+// ops). The step ops (g2_dbl_step, g2_add_step, fq12_mul_line) are device
+// functions of bn254_tower.cuh, one launch each, so the scan form pays a
+// launch and an HBM round trip of f, T and the line per step. The Fq12
 // accumulator and the temporaries live in local memory; the Fq2-level
 // functions and the leaf are not inlined, which keeps the nvcc build in
 // seconds. The limb layout makes each lane's limb loads coalesced across a
 // warp.
 //
-// What bounds them: per lane a body does 3-80 leaf multiplies of 648
+// What bounds them: per lane a body does 3-42 leaf multiplies of 648
 // 32-bit multiply-adds each and moves (n_in + n_out) x 18 x 8 bytes, so
 // the INT32 rate is the nominal bound; at one thread per lane, latency of
 // the dependent leaf chain is what these kernels actually pay.
@@ -128,40 +130,12 @@ BN_FN BN_INLINE const Fp* els(const T& x) {
   return reinterpret_cast<const Fp*>(&x);
 }
 
-// inputs (f, t, qx, qy, xp, yp) -> outputs (f, t)
-BN_FN BN_INLINE void lane_miller_add_body(const int64_t* in, int64_t* out,
-                                          int64_t n, int64_t e) {
-  Fq12 f, fo;
-  ProjG2 t, to;
-  Fq2 qx, qy;
-  Fp xp, yp;
-  load_els(els(f), 12, 0, in, n, e);
-  load_els(els(t), 6, 12, in, n, e);
-  load_els(els(qx), 2, 18, in, n, e);
-  load_els(els(qy), 2, 20, in, n, e);
-  load_els(&xp, 1, 22, in, n, e);
-  load_els(&yp, 1, 23, in, n, e);
-  miller_add_body(fo, to, f, t, qx, qy, xp, yp);
-  store_els(out, 0, els(fo), 12, n, e);
-  store_els(out, 12, els(to), 6, n, e);
-}
-
 // inputs (acc) -> acc^4
 BN_FN BN_INLINE void lane_expu_sq2(const int64_t* in, int64_t* out,
                                    int64_t n, int64_t e) {
   Fq12 acc, o;
   load_els(els(acc), 12, 0, in, n, e);
   expu_sq2(o, acc);
-  store_els(out, 0, els(o), 12, n, e);
-}
-
-// inputs (a, b) -> a * b
-BN_FN BN_INLINE void lane_fq12_mul(const int64_t* in, int64_t* out,
-                                   int64_t n, int64_t e) {
-  Fq12 a, b, o;
-  load_els(els(a), 12, 0, in, n, e);
-  load_els(els(b), 12, 12, in, n, e);
-  fq12_mul(o, a, b);
   store_els(out, 0, els(o), 12, n, e);
 }
 
@@ -303,9 +277,14 @@ constexpr int kSlotWords = 9;  // an Fp in a slot: two 15-bit limbs a word
 // miller_add_body2): 0.079 / 0.054 at 1 lane (G=64); at 4 lanes a SM
 // miller_add_body2's G=32 0.069 against G=64's 0.066; at 32 (4,096 lanes)
 // G=8 0.222 / 0.161 (G=4 0.349 / 0.254, G=16 0.255 / 0.182); at 63 G=8
-// 0.395 / 0.296 against G=4's 0.390 / 0.278. Bigger groups idle more
-// threads in each level's last round; smaller ones leave the SM's
-// schedulers waiting on the leaf's dependent carries.
+// 0.395 / 0.296 against G=4's 0.390 / 0.278. fq12_mul and miller_add_body
+// too, every pick within 8 % of the best G (fq12_mul / miller_add_body):
+// 0.025 / 0.045 at 1 lane (G=64); at 4 lanes a SM G=32 0.035 / 0.056
+// against G=64's 0.033 / 0.054; at 32 G=8 0.090 / 0.108 (G=16 0.093 /
+// 0.123); at 63 G=8 0.197 / 0.198 against fq12_mul's G=16 0.183 and
+// miller_add_body's G=4 0.191. Bigger groups idle more threads in each
+// level's last round; smaller ones leave the SM's schedulers waiting on the
+// leaf's dependent carries.
 struct CoopRule {
   int64_t max_lanes_per_sm;
   int group;
@@ -659,9 +638,7 @@ constexpr int kHostSms = 132;  // the H100's
 
 #endif
 
-BN254_FUSED_KERNEL(miller_add_body)
 BN254_FUSED_KERNEL(expu_sq2)
-BN254_FUSED_KERNEL(fq12_mul)
 BN254_FUSED_KERNEL(fq12_sq)
 BN254_FUSED_KERNEL(fq12_cyc_sq)
 BN254_FUSED_KERNEL(el_pow_step_mul)
@@ -674,3 +651,5 @@ BN254_COOP_KERNEL(miller_dbl_body, CoopMillerDblBody)
 BN254_COOP_KERNEL(expu_step, CoopExpuStep)
 BN254_COOP_KERNEL(miller_dbl_body2, CoopMillerDblBody2)
 BN254_COOP_KERNEL(miller_add_body2, CoopMillerAddBody2)
+BN254_COOP_KERNEL(fq12_mul, CoopFq12Mul)
+BN254_COOP_KERNEL(miller_add_body, CoopMillerAddBody)

@@ -243,7 +243,7 @@ def _launch(key: str, packed: torch.Tensor, out: torch.Tensor) -> None:
 # the lane-cooperative kernels (fused.cu, "Design"): G threads per lane,
 # G picked by the launcher from the lane count and the card's SM count
 COOP = ("miller_dbl_body", "expu_step", "miller_dbl_body2",
-        "miller_add_body2")
+        "miller_add_body2", "fq12_mul", "miller_add_body")
 COOP_INSTANCES = (4, 8, 16, 32, 64)  # the G of fused.cu's BN254_COOP_GROUPS
 COOP_INFO = ("blocks_per_sm", "smem_per_block", "lanes_per_block",
              "registers", "stack_bytes", "threads_per_block")

@@ -11,9 +11,11 @@ Phases, each of which exits non-zero on failure:
    fused.cu (with their shared header bn254_tower.cuh), one compiler per
    source, started together; build seconds and ptxas registers, stack and
    spills per kernel; for each instantiation (G = 4 ... 64 threads per lane)
-   of the four cooperative kernels, miller_dbl_body, expu_step,
-   miller_dbl_body2 and miller_add_body2, resident blocks per SM, shared memory per block, lanes per block, registers and
-   stack (cudaOccupancyMaxActiveBlocksPerMultiprocessor and
+   of the six cooperative kernels (`fused.COOP`: miller_dbl_body,
+   expu_step, miller_dbl_body2, miller_add_body2, fq12_mul and
+   miller_add_body), resident blocks per SM, shared memory per block,
+   lanes per block, registers and stack
+   (cudaOccupancyMaxActiveBlocksPerMultiprocessor and
    cudaFuncGetAttributes, through fused.cu's C exports), and the group size
    the launcher's rule picks at 1, `independent` and batch + 1 lanes.
 3. Kernel vs plain.
@@ -30,9 +32,9 @@ Phases, each of which exits non-zero on failure:
      carried, zero), a lane count that is no multiple of the 64-thread
      block, and an unbatched (18,) operand; the two-pair Miller bodies also
      with their constant line triple (ca, cb, cc) unbatched in its real
-     place, between batched operands. The cooperative kernels (the two-pair
-     bodies among them) are held so at every group size the rule can pick,
-     besides the path's own launch.
+     place, between batched operands. The six cooperative kernels are held
+     so at every group size the rule can pick, besides the path's own
+     launch.
      Phase 6 adds every further lane count and input bound the paths
      launched a kernel at.
 4. The main path through the user entry points: `api.batch_sign` makes

@@ -1,5 +1,6 @@
 """The lane-cooperative kernels (`miller_dbl_body`, `expu_step`,
-`miller_dbl_body2`, `miller_add_body2`) off the card.
+`miller_dbl_body2`, `miller_add_body2`, `fq12_mul`, `miller_add_body`) off
+the card.
 
 Their level schedules (`kernels/coop_schedule.py`, generated into
 `coop_schedule.cuh`) are checked twice:
@@ -7,17 +8,17 @@ Their level schedules (`kernels/coop_schedule.py`, generated into
 * in Python: the tables run level by level on Python ints (Montgomery
   products), each level reading only slots that earlier levels wrote and
   writing no slot another op of the level reads; every product of the
-  formula computed exactly once (117, 90, 160 and 123, plus one load per
-  input El,
-  no two products of the same operands); every output written once, equal
-  to the plain body by value;
+  formula computed exactly once (117, 90, 160, 123, 54 and 80, plus one
+  load per input El, no two products of the same operands); every output
+  written once, equal to the plain body by value;
 * through the g++ build of `fused.cu` (`-DBN254_CHECK_BOUNDS`), whose host
   launchers run the same `coop_op` over each level with the group's
   threads g = 0..G-1 in turn: for every group size the kernels are built
   for, equal to the plain body by canonical value with no failed bound
   check, on pinned and boundary inputs (`utils/samples.bounded_limbs`);
-  the two-pair bodies also with their constant line triple unbatched, as
-  `fused.pack` broadcasts it for the pair2 loop.
+  and with some arguments as unbatched (18,) Els that `fused.pack`
+  broadcasts (the two-pair bodies' constant line triple, `fq12_mul`'s
+  second factor, `miller_add_body`'s G1 point).
 """
 
 import ctypes
@@ -186,21 +187,29 @@ def test_host_schedule_carries_lazy_inputs(host_lib, key):
     assert [[int(v) for v in L.to_ints(g)] for g in got] == want
 
 
-@pytest.mark.parametrize("key", ["miller_dbl_body2", "miller_add_body2"])
+# the arguments held as unbatched (18,) Els: the constant line triple, as
+# the pair2 loop passes it; for fq12_mul and miller_add_body, an operand
+# shared by every lane, which `fused.pack` broadcasts the same way
+UNBATCHED = {"miller_dbl_body2": ("ca", "cb", "cc"),
+             "miller_add_body2": ("ca", "cb", "cc"),
+             "fq12_mul": ("b",),
+             "miller_add_body": ("xp", "yp")}
+
+
+@pytest.mark.parametrize("key", sorted(UNBATCHED))
 def test_host_schedule_with_unbatched_constants(host_lib, key):
-    """The constant line triple (ca, cb, cc) as unbatched (18,) Els between
-    batched operands, as the pair2 loop passes them: packed by
-    `fused.pack`, read by the schedule at every G, equal to the plain body
-    on the unbatched arguments."""
+    """The arguments of `UNBATCHED` as unbatched (18,) Els beside batched
+    operands: packed by `fused.pack`, read by the schedule at every G,
+    equal to the plain body on the unbatched arguments."""
     body = FK.signature(key)[0]
     names = list(inspect.signature(body).parameters)
     args = list(FK.args_from_leaves(
         key, [CV.from_numpy(x, *PINNED) for x in inputs(key, PINNED, 17)]))
-    for j, name in enumerate(("ca", "cb", "cc")):
+    for j, name in enumerate(UNBATCHED[key]):
         i = names.index(name)
         args[i] = L.tree_map(
             lambda e: L.El(e.arr[:, 3 + j % 2], e.vmax, e.lmax), args[i])
-        assert args[i].c0.arr.shape == (NLIMBS,)
+        assert all(e.arr.shape == (NLIMBS,) for e in L.tree_leaves(args[i]))
     packed, batch = FK.pack(L.tree_leaves(args))
     assert batch == (N,)
     packed = np.ascontiguousarray(packed.numpy())
