@@ -1,5 +1,5 @@
-// BN254 field, tower and G1 arithmetic for one lane: the device library of
-// the fused kernels (fused.cu) and the CIOS leaf of the montmul kernel.
+// BN254 field and tower arithmetic for one lane: the device library of the
+// fused kernels (fused.cu) and the CIOS leaf of the montmul kernel.
 //
 // Numbers: little-endian limbs of 15 bits in uint32_t[18], Montgomery radix
 // R = 2^270, p's limbs below. Towers as in fields/tower.py:
@@ -11,6 +11,8 @@
 // plain version: per-step lazy lo/hi column accumulation, one final carry
 // chain, no conditional subtraction. Its contract: operand limbs < 2^16 and
 // a * b + R * p < 2^538 (fields/limbs.py:mont_mul asserts it on the host).
+// `cios_wide` computes the same limbs with 64-bit columns (one IMAD.WIDE a
+// multiply-add); glv_dbl_add and el_pow_step_mul run it, the rest cios.
 //
 // Reduction schedule of the Fp/Fq2/.../Fq12 functions (their own, not the
 // plain bodies' lazy one): every Fp they return is fully carried (limbs
@@ -146,6 +148,51 @@ BN_FN BN_INLINE void cios(uint32_t out[kLimbs], const uint32_t av[kLimbs],
   }
 }
 
+// t + a * b, a 32 x 32 -> 64-bit multiply-add. nvcc makes most of them one
+// IMAD.WIDE.U32 and some, where it knows both operands are below 2^15, a
+// 32-bit IMAD and a 64-bit add: about 2.2 SASS instructions a multiply-add
+// over a whole leaf, against cios's 4.9. Inline PTX mad.wide.u32 was worse
+// (ptxas splits more of them): 6,288 against 5,600 instructions in
+// el_pow_step_mul's kernel (NVIDIA H100 80GB HBM3, CUDA 12.9).
+BN_FN BN_INLINE uint64_t mad_wide(uint32_t a, uint32_t b, uint64_t t) {
+  return t + static_cast<uint64_t>(a) * b;
+}
+
+// The same REDC with 64-bit columns: each multiply-add is one mad_wide into
+// its column, where cios splits every product into its low 15 bits and the
+// rest. A column's running sum (at most 36 products below 2^32 and a
+// carry) stays below 2^38. The digits of the running sum are the same in
+// both representations, so every m digit (from the low 15 bits of column
+// 0) and the result are bit-identical to cios's and montmul_plain's. Same
+// contract as cios.
+BN_FN BN_INLINE void cios_wide(uint32_t out[kLimbs], const uint32_t av[kLimbs],
+                               const uint32_t bv[kLimbs]) {
+  uint64_t t[kLimbs];
+#pragma unroll
+  for (int j = 0; j < kLimbs; ++j) t[j] = 0u;
+#pragma unroll
+  for (int i = 0; i < kLimbs; ++i) {
+    const uint32_t ai = av[i];
+#pragma unroll
+    for (int j = 0; j < kLimbs; ++j) t[j] = mad_wide(ai, bv[j], t[j]);
+    const uint32_t m = (static_cast<uint32_t>(t[0]) * kPinv0) & kMask;
+#pragma unroll
+    for (int j = 0; j < kLimbs; ++j) t[j] = mad_wide(m, p_limb(j), t[j]);
+    const uint64_t carry0 = t[0] >> kLimbBits;  // the low 15 bits are 0 here
+#pragma unroll
+    for (int j = 0; j < kLimbs - 1; ++j) t[j] = t[j + 1];
+    t[kLimbs - 1] = 0u;
+    t[0] += carry0;
+  }
+  uint64_t c = 0u;
+#pragma unroll
+  for (int i = 0; i < kLimbs; ++i) {
+    const uint64_t v = t[i] + c;
+    out[i] = static_cast<uint32_t>(v) & kMask;
+    c = v >> kLimbBits;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Fp: values in [0, 2p), limbs < 2^15
 // ---------------------------------------------------------------------------
@@ -248,12 +295,6 @@ BN_FN BN_INLINE void fp_zero(Fp& r) {
   for (int i = 0; i < kLimbs; ++i) r.l[i] = 0u;
 }
 
-// Montgomery one, R mod p
-BN_FN BN_INLINE void fp_one(Fp& r) {
-#pragma unroll
-  for (int i = 0; i < kLimbs; ++i) r.l[i] = rmodp_limb(i);
-}
-
 // a in [0, 2p) -> its canonical value in [0, p)
 BN_FN BN_INLINE void fp_canon_limbs(uint32_t r[kLimbs], const uint32_t a[kLimbs]) {
   uint32_t d[kLimbs];
@@ -271,13 +312,13 @@ BN_FN BN_INLINE void fp_canon_limbs(uint32_t r[kLimbs], const uint32_t a[kLimbs]
 
 BN_FN BN_NOINLINE void fp_canon(Fp& r, const Fp& a) { fp_canon_limbs(r.l, a.l); }
 
-// a == 0 mod p, for a in [0, 2p)
-BN_FN BN_INLINE bool fp_is_zero(const Fp& a) {
-  Fp c;
-  fp_canon(c, a);
+// a == 0 mod p, for a in [0, 2p) with carried limbs
+BN_FN BN_INLINE bool fp_is_zero(const uint32_t a[kLimbs]) {
+  uint32_t c[kLimbs];
+  fp_canon_limbs(c, a);
   uint32_t any = 0u;
 #pragma unroll
-  for (int i = 0; i < kLimbs; ++i) any |= c.l[i];
+  for (int i = 0; i < kLimbs; ++i) any |= c[i];
   return any == 0u;
 }
 
@@ -623,89 +664,12 @@ BN_FN BN_NOINLINE void add_step(ProjG2& out, Line& ln, const ProjG2& t,
 }
 
 // ---------------------------------------------------------------------------
-// G1 in Jacobian coordinates (curve/jacobian.py, Fq coordinates)
-// ---------------------------------------------------------------------------
-
-struct G1 {
-  Fp x, y, z;
-};
-
-// dbl-2009-l; the identity (Z = 0) maps to itself
-BN_FN BN_NOINLINE void g1_double(G1& r, const G1& p) {
-  Fp a, b, c, d, e, f, t, u;
-  fp_mul(a, p.x, p.x);
-  fp_mul(b, p.y, p.y);
-  fp_mul(c, b, b);
-  fp_add(t, p.x, b);
-  fp_mul(t, t, t);
-  fp_add(u, a, c);
-  fp_sub(t, t, u);
-  fp_add(d, t, t);
-  fp_mul_small(e, a, 3);
-  fp_mul(f, e, e);
-  G1 o;
-  fp_add(t, d, d);
-  fp_sub(o.x, f, t);
-  fp_sub(t, d, o.x);
-  fp_mul(t, e, t);
-  fp_mul_small(u, c, 8);
-  fp_sub(o.y, t, u);
-  fp_mul(t, p.y, p.z);
-  fp_add(o.z, t, t);
-  r = o;
-}
-
-// complete addition: add-2007-bl, then the plain version's masked selects
-// in its order (doubling, P + (-P), either operand the identity); the
-// doubling runs only on lanes that select it
-BN_FN BN_NOINLINE void g1_add(G1& r, const G1& p1, const G1& p2) {
-  Fp z1z1, z2z2, u1, u2, s1, s2, h, rr, i, j, v, t, u;
-  fp_mul(z1z1, p1.z, p1.z);
-  fp_mul(z2z2, p2.z, p2.z);
-  fp_mul(u1, p1.x, z2z2);
-  fp_mul(u2, p2.x, z1z1);
-  fp_mul(t, p1.y, p2.z);
-  fp_mul(s1, t, z2z2);
-  fp_mul(t, p2.y, p1.z);
-  fp_mul(s2, t, z1z1);
-  fp_sub(h, u2, u1);
-  fp_sub(t, s2, s1);
-  fp_add(rr, t, t);
-  fp_add(t, h, h);
-  fp_mul(i, t, t);
-  fp_mul(j, h, i);
-  fp_mul(v, u1, i);
-  G1 o;
-  fp_mul(t, rr, rr);
-  fp_sub(t, t, j);
-  fp_add(u, v, v);
-  fp_sub(o.x, t, u);
-  fp_sub(t, v, o.x);
-  fp_mul(t, rr, t);
-  fp_mul(u, s1, j);
-  fp_add(u, u, u);
-  fp_sub(o.y, t, u);
-  fp_mul(t, p1.z, p2.z);
-  fp_mul(t, t, h);
-  fp_add(o.z, t, t);
-  const bool h_zero = fp_is_zero(h), r_zero = fp_is_zero(rr);
-  if (h_zero && r_zero) g1_double(o, p1);
-  if (h_zero && !r_zero) {
-    fp_one(o.x);
-    fp_one(o.y);
-    fp_zero(o.z);
-  }
-  if (fp_is_zero(p1.z)) o = p2;
-  if (fp_is_zero(p2.z)) o = p1;
-  r = o;
-}
-
-// ---------------------------------------------------------------------------
-// the fused bodies (pairing/miller.py, pairing/final_exp.py, fields/limbs.py,
-// curve/glv.py); fq12_sq, fq12_cyc_sq, fq12_mul_line and the step ops
-// above are bodies of their own. The cooperative bodies (the four Miller
-// digit bodies, expu_step and fq12_mul) are level schedules over the same
-// functions instead (fused.cu, coop_schedule.py).
+// the fused bodies (pairing/final_exp.py, fields/limbs.py); fq12_sq,
+// fq12_cyc_sq, fq12_mul_line and the step ops above are bodies of their
+// own. The cooperative bodies (the four Miller digit bodies, expu_step,
+// fq12_mul and glv_dbl_add) are level schedules over the same functions
+// instead (fused.cu, coop_schedule.py), and el_pow_step_mul is fused.cu's
+// register-resident chain over cios_wide.
 // ---------------------------------------------------------------------------
 
 // the window of the fused pow chain (fields/limbs.py:_POW_WINDOW)
@@ -716,20 +680,6 @@ BN_FN BN_INLINE void el_pow_step_sq(Fp& out, const Fp& acc) {
   Fp x = acc;
   for (int k = 0; k < kPowWindow; ++k) fp_mul(x, x, x);
   out = x;
-}
-
-// el_pow_step_mul: acc^(2^3) * m
-BN_FN BN_INLINE void el_pow_step_mul(Fp& out, const Fp& acc, const Fp& m) {
-  Fp x;
-  el_pow_step_sq(x, acc);
-  fp_mul(out, x, m);
-}
-
-// glv_dbl_add: 2 acc + sel
-BN_FN BN_INLINE void glv_dbl_add(G1& out, const G1& acc, const G1& sel) {
-  G1 d;
-  g1_double(d, acc);
-  g1_add(out, d, sel);
 }
 
 // expu_sq2: acc^4 by two cyclotomic squarings

@@ -1,13 +1,14 @@
 """Level schedules of the lane-cooperative kernels of `fused.cu`.
 
 `miller_dbl_body`, `miller_add_body`, `expu_step`, `fq12_mul`,
-`miller_dbl_body2` and `miller_add_body2` run as a group of G threads per
-lane (`fused.cu`, "Design"). Their bodies are traced here, Fp operation by
-Fp operation, from formulas that mirror `bn254_tower.cuh`'s functions line
-for line (`fq12_sq`, `dbl_step`, `add_step`, `fq12_mul_line`;
-`fq12_cyc_sq`, `fq6_mul`) and, for `fq12_mul`'s Karatsuba over Fq6 and the
-second pair's constant line, the plain bodies (`fields/tower.py:
-_fq12_mul_impl`, `pairing/miller.py:_dbl_body2_impl`),
+`miller_dbl_body2`, `miller_add_body2` and `glv_dbl_add` run as a group of
+G threads per lane (`fused.cu`, "Design"). Their bodies are traced here, Fp
+operation by Fp operation, from formulas that mirror `bn254_tower.cuh`'s
+functions line for line (`fq12_sq`, `dbl_step`, `add_step`,
+`fq12_mul_line`; `fq12_cyc_sq`, `fq6_mul`) and, for `fq12_mul`'s Karatsuba
+over Fq6, the second pair's constant line and the G1 doubling and complete
+addition, the plain bodies (`fields/tower.py:_fq12_mul_impl`,
+`pairing/miller.py:_dbl_body2_impl`, `curve/jacobian.py:double, add`),
 and cut into *levels*: sets of operations that read only what earlier
 levels wrote. The group runs a level with thread g taking operations g,
 g + G, ... and synchronises between levels.
@@ -22,7 +23,14 @@ An operation (`Op`) is one of
   RSUB s (s - acc), DBL (acc + acc), each with `fp_add` / `fp_sub`'s
   result (below 2p, limbs below 2^15). A chain absorbs every linear
   intermediate that only one later linear operation reads, so a level of
-  additions is one short loop per thread.
+  additions is one short loop per thread;
+* SEL: a chain of masked selects, `b` steps from `steps[a]`: IF_ZERO s and
+  IF_NONZERO s test whether slot s is zero mod p (`fp_is_zero`: a value
+  in [0, 2p)), and a take (TAKE s, TAKE_ZERO, TAKE_ONE: the Montgomery
+  one) replaces acc on lanes where every test since the previous take
+  holds. The first step is a take. `glv_dbl_add` ends in one SEL per
+  output coordinate: the complete addition's four selects in the plain
+  body's order.
 
 Its result goes to slot `out` (if anything reads it later) and, canonical,
 to output El `gout` (if it is one). Slots hold one Fp each in a lane's
@@ -45,9 +53,11 @@ from pathlib import Path
 
 HEADER = Path(__file__).resolve().parent / "coop_schedule.cuh"
 
-# op kinds and chain step codes (fused.cu reads the same numbers)
-MUL, LOAD, LIN = 0, 1, 2
+# op kinds, chain step codes and select step codes (fused.cu reads the
+# same numbers)
+MUL, LOAD, LIN, SEL = 0, 1, 2, 3
 SET, ADD, SUB, RSUB, ZERO, DBL = range(6)
+TAKE, TAKE_ZERO, TAKE_ONE, IF_ZERO, IF_NONZERO = range(5)
 NONE = 0xFFFF
 SLOT_BITS = 13  # slots < 2^13; step = code << 13 | slot
 WORDS_PER_FP = 9  # 18 limbs of 15 bits, two to a 32-bit word
@@ -56,8 +66,15 @@ WORDS_PER_FP = 9  # 18 limbs of 15 bits, two to a 32-bit word
 @dataclasses.dataclass(eq=False)
 class Node:
     id: int
-    op: str  # "load", "zero", "mul", "add", "sub"
-    args: tuple  # Nodes, or (input index,) for a load
+    op: str  # "load", "zero", "mul", "add", "sub", "sel"
+    # Nodes; (input index,) for a load; (code, Node or None) steps for a sel
+    args: tuple
+
+    def operands(self):
+        """The Nodes this one reads."""
+        if self.op == "sel":
+            return [x for _, x in self.args if x is not None]
+        return [a for a in self.args if isinstance(a, Node)]
 
 
 class Trace:
@@ -90,6 +107,10 @@ class Trace:
 
     def mul(self, a, b):
         return self._node("mul", a, b)
+
+    def select(self, steps):
+        """A SEL chain: [(code, Node or None)] (codes TAKE ... IF_NONZERO)."""
+        return self._node("sel", *steps)
 
 
 # -- the formulas of bn254_tower.cuh, over (c0, c1) / (c0, c1, c2) tuples ----
@@ -253,6 +274,53 @@ class Tower:
         oy = sub(m(theta, sub(gg, hh)), m(ee, y))
         return (ox, oy, m(z, ee)), (la, lb, lc)
 
+    def g1_double(self, p):
+        """dbl-2009-l (curve/jacobian.py:double)."""
+        t = self.t
+        x, y, z = p
+        a, b = t.mul(x, x), t.mul(y, y)
+        c = t.mul(b, b)
+        s = t.add(x, b)
+        d = t.sub(t.mul(s, s), t.add(a, c))
+        d = t.add(d, d)
+        e = self.mul_small(a, 3)
+        x3 = t.sub(t.mul(e, e), t.add(d, d))
+        y3 = t.sub(t.mul(e, t.sub(d, x3)), self.mul_small(c, 8))
+        yz = t.mul(y, z)
+        return (x3, y3, t.add(yz, yz))
+
+    def g1_add(self, p1, p2):
+        """The complete addition (curve/jacobian.py:add): add-2007-bl, the
+        doubling of p1 that the plain body computes on every lane, then
+        its masked selects in its order, one SEL per coordinate: the
+        doubling if h = 0 and r = 0, the identity (one, one, 0) if h = 0
+        and r != 0, p2 if p1 is the identity, p1 if p2 is."""
+        t = self.t
+        (x1, y1, z1), (x2, y2, z2) = p1, p2
+        z1z1, z2z2 = t.mul(z1, z1), t.mul(z2, z2)
+        u1, u2 = t.mul(x1, z2z2), t.mul(x2, z1z1)
+        s1 = t.mul(t.mul(y1, z2), z2z2)
+        s2 = t.mul(t.mul(y2, z1), z1z1)
+        h = t.sub(u2, u1)
+        r = t.sub(s2, s1)
+        r = t.add(r, r)
+        h2 = t.add(h, h)
+        i = t.mul(h2, h2)
+        j, v = t.mul(h, i), t.mul(u1, i)
+        x3 = t.sub(t.sub(t.mul(r, r), j), t.add(v, v))
+        sj = t.mul(s1, j)
+        y3 = t.sub(t.mul(r, t.sub(v, x3)), t.add(sj, sj))
+        zh = t.mul(t.mul(z1, z2), h)
+        added = (x3, y3, t.add(zh, zh))
+        doubled = self.g1_double(p1)
+        identity = (TAKE_ONE, TAKE_ONE, TAKE_ZERO)
+        return tuple(t.select([
+            (TAKE, added[c]),
+            (IF_ZERO, h), (IF_ZERO, r), (TAKE, doubled[c]),
+            (IF_ZERO, h), (IF_NONZERO, r), (identity[c], None),
+            (IF_ZERO, z1), (TAKE, p2[c]),
+            (IF_ZERO, z2), (TAKE, p1[c])]) for c in range(3))
+
     def const_line_fold(self, f, ca, cb, cc, xp1, yp1):
         """f * (ca yP1 + cb xP1 w + cc v w): the second pair's line from
         host-precomputed constants."""
@@ -352,14 +420,25 @@ def trace_expu_step():
     return tr, _flat(tw.fq12_mul(tw.fq12_cyc_sq(tw.fq12_cyc_sq(acc)), m))
 
 
-# key -> (tracer, leaf products of the formula per lane, loads excluded)
+def trace_glv_dbl_add():
+    """(acc, sel) -> 2 acc + sel, G1 Jacobian points: 6 -> 3 Els."""
+    tr = Trace()
+    tw = Tower(tr)
+    loads = [tr.load(i) for i in range(6)]
+    acc, sel = tuple(loads[:3]), tuple(loads[3:])
+    return tr, list(tw.g1_add(tw.g1_double(acc), sel))
+
+
+# key -> (tracer, leaf products of the formula per lane, loads excluded,
+# whether its products run cios_wide rather than cios)
 BODIES = {
-    "miller_dbl_body": (trace_miller_dbl_body, 117),
-    "expu_step": (trace_expu_step, 90),
-    "miller_dbl_body2": (trace_miller_dbl_body2, 160),
-    "miller_add_body2": (trace_miller_add_body2, 123),
-    "fq12_mul": (trace_fq12_mul, 54),
-    "miller_add_body": (trace_miller_add_body, 80),
+    "miller_dbl_body": (trace_miller_dbl_body, 117, False),
+    "expu_step": (trace_expu_step, 90, False),
+    "miller_dbl_body2": (trace_miller_dbl_body2, 160, False),
+    "miller_add_body2": (trace_miller_add_body2, 123, False),
+    "fq12_mul": (trace_fq12_mul, 54, False),
+    "miller_add_body": (trace_miller_add_body, 80, False),
+    "glv_dbl_add": (trace_glv_dbl_add, 30, True),
 }
 
 
@@ -386,6 +465,7 @@ class Schedule:
     steps: list  # chain steps, code << SLOT_BITS | slot
     level_first: list  # ops[level_first[l]:level_first[l + 1]] is level l
     products: int  # MUL ops (LOADs excluded)
+    wide_leaf: bool  # its products run cios_wide
 
     @property
     def levels(self):
@@ -445,14 +525,13 @@ def _levels(roots, reads):
 
 def schedule(key: str) -> Schedule:
     """The level schedule of body `key`, with its slots allocated."""
-    tracer, _ = BODIES[key]
+    tracer = BODIES[key][0]
     tr, outs = tracer()
     nodes = tr.nodes
     consumers = {n.id: set() for n in nodes}
     for n in nodes:
-        for a in n.args:
-            if isinstance(a, Node):
-                consumers[a.id].add(n.id)
+        for a in n.operands():
+            consumers[a.id].add(n.id)
     out_of = {}
     for i, n in enumerate(outs):
         out_of.setdefault(n.id, []).append(i)
@@ -480,7 +559,7 @@ def schedule(key: str) -> Schedule:
         else:
             pred[n.id] = None
     inlined = {p.id for p in pred.values() if p is not None and p.op != "zero"}
-    roots = [n for n in nodes if n.op in ("load", "mul")
+    roots = [n for n in nodes if n.op in ("load", "mul", "sel")
              or (linear(n) and n.id not in inlined)]
 
     def chain(n):
@@ -506,8 +585,8 @@ def schedule(key: str) -> Schedule:
     for n in roots:
         if n.op == "load":
             reads[n.id] = []
-        elif n.op == "mul":
-            reads[n.id] = list(n.args)
+        elif n.op in ("mul", "sel"):
+            reads[n.id] = n.operands()
         else:
             chains[n.id] = chain(n)
             reads[n.id] = [x for _, x in chains[n.id] if x is not None]
@@ -557,16 +636,17 @@ def schedule(key: str) -> Schedule:
                               n.id))
             else:
                 first = len(steps)
-                for code, x in chains[n.id]:
+                for code, x in n.args if n.op == "sel" else chains[n.id]:
                     steps.append(code << SLOT_BITS
                                  | (0 if x is None else slot_of[x.id]))
-                ops.append(Op(LIN, slot, gout, first, len(steps) - first, n.id))
+                ops.append(Op(SEL if n.op == "sel" else LIN, slot, gout,
+                              first, len(steps) - first, n.id))
         level_first.append(len(ops))
     if n_slots >= 1 << SLOT_BITS or len(steps) >= NONE:
         raise ValueError(f"{key}: schedule too large for its encoding")
     n_in = sum(n.op == "load" for n in nodes)
     return Schedule(key, n_in, len(outs), n_slots, ops, steps, level_first,
-                    products)
+                    products, BODIES[key][2])
 
 
 # -- the header --------------------------------------------------------------
@@ -587,8 +667,8 @@ def header_text() -> str:
         "// Generated by bn254_tpu_torch/kernels/coop_schedule.py; do not edit.",
         "// Level schedules of the lane-cooperative kernels (fused.cu): per",
         "// body, its ops (kind << 14 | out slot, output El, a, b;",
-        "// slot 0x3FFF: none), the chain steps of its additions",
-        "// (code << 13 | slot) and the first op of each level.",
+        "// slot 0x3FFF: none), the chain steps of its additions and selects",
+        "// (code << 13 | slot), the first op of each level and its leaf.",
         "",
         "#pragma once",
         "",
@@ -619,6 +699,8 @@ def header_text() -> str:
             f"  static constexpr int kIn = {s.n_in}, kOut = {s.n_out};",
             f"  static constexpr int kLevels = {s.levels}, "
             f"kLaneWords = {s.lane_words};",
+            f"  static constexpr bool kWideLeaf = "
+            f"{'true' if s.wide_leaf else 'false'};",
             f"  static BN_COOP const uint16_t* ops() "
             f"{{ return kCoopOps{name}; }}",
             f"  static BN_COOP const uint16_t* steps() "

@@ -32,29 +32,52 @@
 // for limb (chip_smoke.py and tests/test_torch_fused_host.py compare so).
 //
 // Design, the cooperative kernels (miller_dbl_body, miller_add_body,
-// expu_step, fq12_mul, miller_dbl_body2, miller_add_body2): a group of G
-// threads per lane. Their bodies are level schedules
+// expu_step, fq12_mul, miller_dbl_body2, miller_add_body2, glv_dbl_add): a
+// group of G threads per lane. Their bodies are level schedules
 // (kernels/coop_schedule.py, generated into coop_schedule.cuh): each level
-// is a set of independent Fp operations (a CIOS product, an input load, or
-// one thread's chain of additions) that read only what earlier levels
-// wrote. Thread g of the group runs operations g, g + G, ... of a level,
-// then the group synchronises (__syncwarp for G <= 32, __syncthreads for a
-// 64-thread group). A lane's values live in shared memory, one slot of 9
-// words (two 15-bit limbs each) per Fp, reused once dead: 91, 86, 108, 108,
-// 97 and 92 slots (3.3, 3.1, 3.9, 3.9, 3.5 and 3.3 KB). The products of one
-// product depth share a level (4, 4, 3, 1, 5 and 4 such levels, loads
-// excluded; fq12_mul's 54 products are one level), the leaf stays cios with
-// its operands in registers, and results agree with the plain bodies by
-// canonical value. The Miller bodies keep the plain bodies' order (the
-// square of a doubling digit, the step, the line fold, then the two-pair
-// bodies' constant line), and the two-pair bodies' constant triple (ca,
-// cb, cc) is read like any other input El: the wrapper's packing
-// broadcasts it over the lanes. G comes from the lane count and the card's
-// SM count (kCoopRule below): 64 for the one-lane final exponentiation and
-// the narrow end of the Fq12 product tree, 8 for 4,096 and 8,193 lanes.
-// What bounds them: at thousands of lanes the instruction rate of the
-// leaves; at one lane the latency of the levels, most of them chains of
-// additions whose carries run limb by limb.
+// is a set of independent Fp operations (a CIOS product, an input load,
+// one thread's chain of additions, or its chain of masked selects) that
+// read only what earlier levels wrote. Thread g of the group runs
+// operations g, g + G, ... of a level, then the group synchronises
+// (__syncwarp for G <= 32, __syncthreads for a 64-thread group). A lane's
+// values live in shared memory, one slot of 9 words (two 15-bit limbs
+// each) per Fp, reused once dead: 91, 86, 108, 108, 97, 92 and 20 slots
+// (3.3, 3.1, 3.9, 3.9, 3.5, 3.3 and 0.7 KB). The products of one product
+// depth share a level (4, 4, 3, 1, 5, 4 and 7 such levels, loads excluded;
+// fq12_mul's 54 products are one level), the leaf runs with its operands
+// in registers, and results agree with the plain bodies by canonical
+// value. The leaf is the schedule's (S::kWideLeaf): cios_wide for
+// glv_dbl_add, cios for the six others. glv_dbl_add (one Shamir step,
+// 2 acc + sel) is the plain body's dbl-2009-l, add-2007-bl and the doubling
+// of 2 acc that the plain complete add computes on every lane, 30 products
+// in 22 levels of 1-7 operations, then one SEL per output coordinate with
+// the plain body's four selects in its order. The Miller bodies keep the
+// plain bodies' order (the square of a doubling digit, the step, the line
+// fold, then the two-pair bodies' constant line), and the two-pair
+// bodies' constant triple (ca, cb, cc) is read like any other input El:
+// the wrapper's packing broadcasts it over the lanes. G comes from the lane
+// count and the card's SM count (kCoopRule below, kGlvRule for
+// glv_dbl_add): 64 for the one-lane final exponentiation and the narrow end
+// of the Fq12 product tree, 8 for 4,096 and 8,193 lanes, 2 for
+// glv_dbl_add's 16,384. What bounds them: at thousands of lanes the
+// instruction rate of the leaves; at one lane the latency of the levels,
+// most of them chains of additions whose carries run limb by limb;
+// glv_dbl_add, whose levels hold 1-7 operations, the latency of its 22
+// levels at ~8 warps a SM.
+//
+// Design, el_pow_step_mul (acc^8 m: two input loads, three squares and the
+// multiply, a strict chain of six products): one thread per lane, 64-thread
+// blocks, every value in registers, each product cios_wide on the previous
+// one's result. No two of its Fp operations are independent, so a level
+// schedule would hold one product a level; sharing each product's columns
+// between T threads of a lane (a shuffle for a_i, for m and for the column
+// shift each CIOS round) was measured slower at every width, T = 1 / 2 / 4
+// / 8 in ms per launch (NVIDIA H100 80GB HBM3, 700.00 W): one lane, device
+// time, 0.0113 / 0.0158 / 0.0139 / 0.0148; 8,193 lanes 0.0158 / 0.0177 /
+// 0.0187 / 0.0231; 32,768 0.0209 / 0.0387 / 0.0547 / 0.0775; 65,536 0.0385
+// / 0.0745 / 0.0982 / 0.1480. What bounds it: at 65,536 lanes the
+// instruction rate of its leaves, at one lane the latency of the six
+// products' chain.
 //
 // Design, the other kernels: one thread per lane, 64-thread blocks (8,193
 // Miller lanes fill 129 blocks, about one per SM, for the scan form's step
@@ -74,9 +97,10 @@
 // Under a host compiler (no __CUDACC__) the file instead exports
 // bn254_host_<key>(in, out, n), the same lane bodies in a plain loop (the
 // cooperative ones level by level, the group's threads in turn, also as
-// bn254_host_<key>_g with a given G), which tests/test_torch_fused_host.py
-// and tests/test_torch_coop.py build with g++ and hold against the plain
-// torch bodies.
+// bn254_host_<key>_g with a given G), and the two leaves as
+// bn254_host_cios and bn254_host_cios_wide, which
+// tests/test_torch_fused_host.py and tests/test_torch_coop.py build with
+// g++ and hold against the plain torch bodies and montmul_plain.
 
 #include "bn254_tower.cuh"
 
@@ -89,21 +113,26 @@
 
 namespace bn254 {
 
+// input El `el` of lane e (value < 2^270, limbs < 2^26), carried
+BN_FN BN_INLINE void load_raw(Fp& raw, int el, const int64_t* in, int64_t n,
+                              int64_t e) {
+  uint32_t c = 0u;
+#pragma unroll
+  for (int i = 0; i < kLimbs; ++i) {
+    const uint32_t v = static_cast<uint32_t>(in[(el * kLimbs + i) * n + e]) + c;
+    raw.l[i] = v & kMask;
+    c = v >> kLimbBits;
+  }
+  BN_CHECK(c == 0u);  // value < 2^270
+}
+
 // Els first .. first+count-1 of lane e (value < 2^270, limbs < 2^26),
 // carried and brought into [0, 2p)
 BN_FN BN_INLINE void load_els(Fp* dst, int count, int first,
                               const int64_t* in, int64_t n, int64_t e) {
   for (int k = 0; k < count; ++k) {
     Fp raw;
-    uint32_t c = 0u;
-#pragma unroll
-    for (int i = 0; i < kLimbs; ++i) {
-      const uint32_t v =
-          static_cast<uint32_t>(in[((first + k) * kLimbs + i) * n + e]) + c;
-      raw.l[i] = v & kMask;
-      c = v >> kLimbBits;
-    }
-    BN_CHECK(c == 0u);  // value < 2^270
+    load_raw(raw, first + k, in, n, e);
     fp_load(dst[k], raw);
   }
 }
@@ -157,13 +186,40 @@ BN_FN BN_INLINE void lane_fq12_cyc_sq(const int64_t* in, int64_t* out,
   store_els(out, 0, els(o), 12, n, e);
 }
 
-// inputs (acc, m) -> acc^8 * m
+// REDC(a b) by cios_wide, operands and result in registers
+BN_FN BN_INLINE void fp_mul_wide(Fp& r, const Fp& a, const Fp& b) {
+#ifdef BN254_CHECK_BOUNDS
+  for (int i = 0; i < kLimbs; ++i) {
+    BN_CHECK(a.l[i] < (1u << 16));
+    BN_CHECK(b.l[i] < (1u << 16));
+  }
+#endif
+  Fp o;
+  cios_wide(o.l, a.l, b.l);
+  fp_check(o);
+  r = o;
+}
+
+// inputs (acc, m) -> acc^8 m: the two loads (REDC by R mod p, as fp_load),
+// three squares and the multiply, one chain of six cios_wide products
 BN_FN BN_INLINE void lane_el_pow_step_mul(const int64_t* in, int64_t* out,
                                           int64_t n, int64_t e) {
-  Fp acc[2], o;
-  load_els(acc, 2, 0, in, n, e);
-  el_pow_step_mul(o, acc[0], acc[1]);
-  store_els(out, 0, &o, 1, n, e);
+  Fp one, v[2];
+#pragma unroll
+  for (int i = 0; i < kLimbs; ++i) one.l[i] = rmodp_limb(i);
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    Fp raw;
+    load_raw(raw, k, in, n, e);
+    fp_mul_wide(v[k], raw, one);
+  }
+#pragma unroll 1  // one copy of the square: 140 registers, not 200
+  for (int w = 0; w < kPowWindow; ++w) fp_mul_wide(v[0], v[0], v[0]);
+  fp_mul_wide(v[0], v[0], v[1]);
+  uint32_t c[kLimbs];
+  fp_canon_limbs(c, v[0].l);
+#pragma unroll
+  for (int i = 0; i < kLimbs; ++i) out[i * n + e] = c[i];
 }
 
 // inputs (acc) -> acc^8
@@ -173,16 +229,6 @@ BN_FN BN_INLINE void lane_el_pow_step_sq(const int64_t* in, int64_t* out,
   load_els(&acc, 1, 0, in, n, e);
   el_pow_step_sq(o, acc);
   store_els(out, 0, &o, 1, n, e);
-}
-
-// inputs (acc.x, acc.y, acc.z, sel.x, sel.y, sel.z) -> 2 acc + sel
-BN_FN BN_INLINE void lane_glv_dbl_add(const int64_t* in, int64_t* out,
-                                      int64_t n, int64_t e) {
-  G1 acc, sel, o;
-  load_els(els(acc), 3, 0, in, n, e);
-  load_els(els(sel), 3, 3, in, n, e);
-  glv_dbl_add(o, acc, sel);
-  store_els(out, 0, els(o), 3, n, e);
 }
 
 // inputs (f, a, b, c) -> f * (a + b w + c v w)
@@ -232,9 +278,8 @@ BN_FN BN_INLINE void lane_g2_add_step(const int64_t* in, int64_t* out,
 }  // namespace bn254
 
 // ---------------------------------------------------------------------------
-// The lane-cooperative kernels: miller_dbl_body, expu_step,
-// miller_dbl_body2 and miller_add_body2, G threads per lane over the level
-// schedules of coop_schedule.cuh
+// The lane-cooperative kernels: G threads per lane over the level schedules
+// of coop_schedule.cuh
 // ---------------------------------------------------------------------------
 
 #ifdef __CUDACC__
@@ -245,17 +290,22 @@ BN_FN BN_INLINE void lane_g2_add_step(const int64_t* in, int64_t* out,
 #define BN_COOP inline
 #endif
 
-// the instantiated group sizes (threads per lane)
+// the instantiated group sizes (threads per lane); glv_dbl_add's also 1, 2
 #define BN254_COOP_GROUPS(X) X(4) X(8) X(16) X(32) X(64)
+#define BN254_GLV_GROUPS(X) X(1) X(2) BN254_COOP_GROUPS(X)
 
 #include "coop_schedule.cuh"
 
 namespace bn254 {
 
-// op kinds, chain step codes and encodings of kernels/coop_schedule.py
-enum : uint32_t { kOpMul = 0u, kOpLoad = 1u, kOpLin = 2u };
+// op kinds, chain and select step codes and encodings of
+// kernels/coop_schedule.py
+enum : uint32_t { kOpMul = 0u, kOpLoad = 1u, kOpLin = 2u, kOpSel = 3u };
 enum : uint32_t {
   kStepSet = 0u, kStepAdd, kStepSub, kStepRsub, kStepZero, kStepDbl
+};
+enum : uint32_t {
+  kSelTake = 0u, kSelTakeZero, kSelTakeOne, kSelIfZero, kSelIfNonzero
 };
 constexpr uint32_t kNoSlot = 0x3FFFu, kNoEl = 0xFFFFu;
 constexpr int kStepSlotBits = 13;
@@ -289,15 +339,37 @@ struct CoopRule {
   int64_t max_lanes_per_sm;
   int group;
 };
-constexpr CoopRule kCoopRule[] = {
-    {3, 64}, {11, 32}, {23, 16}, {int64_t(1) << 40, 8}};
-constexpr int kCoopRules = sizeof(kCoopRule) / sizeof(kCoopRule[0]);
+constexpr int64_t kAnyWidth = int64_t(1) << 40;
+constexpr CoopRule kCoopRule[] = {{3, 64}, {11, 32}, {23, 16}, {kAnyWidth, 8}};
 
-inline int coop_group(int64_t n, int sms) {
+// glv_dbl_add's rows, from its own sweep (coop_sweep at 1, 2, 32, 63 and
+// 125 lanes a SM; NVIDIA H100 80GB HBM3, 700.00 W), ms per launch: at 1 and
+// 2 lanes a SM G = 8 to 64 within 2 % (0.049-0.051; device time at one
+// lane 0.044 at G=64, 0.045 at G=16), G=4 0.063, G=2 0.085; at 32 (4,096
+// lanes) G=4 0.063 (G=8 0.065, G=2 0.086); at 63 (8,193) G=4 0.083 (G=2
+// 0.087, G=8 0.113); at 125 (16,384, the GLV ladder) G=2 0.115 (G=4 0.148,
+// G=8 0.209). G=1 takes 0.123-0.125 at every width, 10 % above G=2 at 125
+// lanes a SM: one thread runs every operation of a level in turn, ~4 warps
+// a SM at 16,384 lanes. Its levels hold 1-7 operations, so a big
+// group's threads idle, and at thousands of lanes their issue slots cost
+// more than the warps a bigger group adds (G=2 at 16,384 lanes: ~8 warps a
+// SM). 4-31 lanes a SM, which no path runs, take G=4 unmeasured.
+constexpr CoopRule kGlvRule[] = {{3, 64}, {94, 4}, {kAnyWidth, 2}};
+
+// the group size of `rule` for n lanes on `sms` SMs
+template <int N>
+constexpr int coop_group(const CoopRule (&rule)[N], int64_t n, int sms) {
   const int64_t per_sm = (n + sms - 1) / sms;
-  for (int i = 0; i < kCoopRules - 1; ++i)
-    if (per_sm <= kCoopRule[i].max_lanes_per_sm) return kCoopRule[i].group;
-  return kCoopRule[kCoopRules - 1].group;
+  for (int i = 0; i < N - 1; ++i)
+    if (per_sm <= rule[i].max_lanes_per_sm) return rule[i].group;
+  return rule[N - 1].group;
+}
+
+// the group sizes `rule` can pick, into out[0..cap); returns their number
+template <int N>
+int coop_groups(const CoopRule (&rule)[N], int* out, int cap) {
+  for (int i = 0; i < N && i < cap; ++i) out[i] = rule[i].group;
+  return N;
 }
 
 BN_COOP uint32_t tab(const uint16_t* p) {
@@ -371,7 +443,41 @@ BN_COOP void coop_chain(Fp& acc, const uint16_t* steps, uint32_t len,
   }
 }
 
-// op k of schedule S on lane e, whose slots are st
+// a chain of masked selects (coop_schedule.py, SEL): a take (a slot, 0 or
+// the Montgomery one) replaces acc where every test since the previous take
+// holds; a test asks whether a slot is zero mod p (fp_is_zero). Branch free:
+// the lanes of a warp run the same steps on their own data.
+BN_COOP void coop_select(Fp& acc, const uint16_t* steps, uint32_t len,
+                         const uint32_t* st) {
+  fp_zero(acc);  // the first step is a take
+  uint32_t hold = ~0u;  // all ones while every test since the take holds
+  for (uint32_t s = 0; s < len; ++s) {
+    const uint32_t w = tab(steps + s);
+    const uint32_t code = w >> kStepSlotBits;
+    const uint32_t slot = w & ((1u << kStepSlotBits) - 1u);
+    uint32_t x[kLimbs];
+    if (code == kSelIfZero || code == kSelIfNonzero) {
+      slot_get(x, st, slot);
+      const uint32_t zero = 0u - static_cast<uint32_t>(fp_is_zero(x));
+      hold &= code == kSelIfZero ? zero : ~zero;
+      continue;
+    }
+    if (code == kSelTake) {
+      slot_get(x, st, slot);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kLimbs; ++i)
+        x[i] = code == kSelTakeOne ? rmodp_limb(i) : 0u;
+    }
+#pragma unroll
+    for (int i = 0; i < kLimbs; ++i)
+      acc.l[i] = (x[i] & hold) | (acc.l[i] & ~hold);
+    hold = ~0u;
+  }
+}
+
+// op k of schedule S on lane e, whose slots are st; its products (MUL and
+// LOAD) run the schedule's leaf, cios_wide or cios
 template <class S>
 BN_COOP void coop_op(int k, uint32_t* st, const int64_t* in, int64_t* out,
                      int64_t n, int64_t e) {
@@ -382,6 +488,8 @@ BN_COOP void coop_op(int k, uint32_t* st, const int64_t* in, int64_t* out,
   Fp r;
   if (kind == kOpLin) {
     coop_chain(r, S::steps() + a, b, st);
+  } else if (kind == kOpSel) {
+    coop_select(r, S::steps() + a, b, st);
   } else {
     uint32_t x[kLimbs], y[kLimbs];
     if (kind == kOpLoad) {  // input El a: carried, then fp_load
@@ -399,7 +507,11 @@ BN_COOP void coop_op(int k, uint32_t* st, const int64_t* in, int64_t* out,
       slot_get(x, st, a);
       slot_get(y, st, b);
     }
-    cios(r.l, x, y);
+    if constexpr (S::kWideLeaf) {
+      cios_wide(r.l, x, y);
+    } else {
+      cios(r.l, x, y);
+    }
     fp_check(r);
   }
   if (slot != kNoSlot) slot_put(st, slot, r.l);
@@ -413,17 +525,15 @@ BN_COOP void coop_op(int k, uint32_t* st, const int64_t* in, int64_t* out,
 
 }  // namespace bn254
 
-// the group sizes the rule can pick, into out[0..cap); returns their number
-extern "C" int bn254_coop_groups(int* out, int cap) {
-  for (int i = 0; i < bn254::kCoopRules && i < cap; ++i)
-    out[i] = bn254::kCoopRule[i].group;
-  return bn254::kCoopRules;
-}
-
-// the group size the launchers pick for n lanes on `sms` SMs
-extern "C" int bn254_coop_group(int64_t n, int sms) {
-  return bn254::coop_group(n, sms);
-}
+// bn254_<key>_groups(out, cap): the sizes `rule` can pick (their number);
+// bn254_<key>_group(n, sms): its pick for n lanes on `sms` SMs
+#define BN254_RULE_EXPORTS(key, rule)                                      \
+  extern "C" int bn254_##key##_groups(int* out, int cap) {                 \
+    return bn254::coop_groups(bn254::rule, out, cap);                      \
+  }                                                                        \
+  extern "C" int bn254_##key##_group(int64_t n, int sms) {                 \
+    return bn254::coop_group(bn254::rule, n, sms);                         \
+  }
 
 #ifdef __CUDACC__
 
@@ -537,33 +647,38 @@ inline int coop_sms() {
   return sms;
 }
 
-// bn254_<key>(in, out, n, stream): G by the rule; bn254_<key>_g with a given
-// G (a G that is not instantiated is cudaErrorInvalidValue); bn254_<key>_info
+// a cooperative kernel over schedule S (GROUPS: its instantiated sizes;
+// rule: its CoopRule rows): bn254_<key>(in, out, n, stream) with the rule's
+// G; bn254_<key>_g with a given G (one that is not instantiated is
+// cudaErrorInvalidValue); bn254_<key>_info; bn254_<key>_groups and _group,
+// the rule's sizes and pick
 #define BN254_COOP_CASE_LAUNCH(G) \
   case G:                         \
     return coop_launch<S, G>(in, out, n, static_cast<cudaStream_t>(stream));
 #define BN254_COOP_CASE_INFO(G) \
   case G:                       \
     return coop_info<S, G>(info);
-#define BN254_COOP_KERNEL(key, Sched)                                        \
+#define BN254_COOP_KERNEL(key, Sched, GROUPS, rule)                          \
   extern "C" int bn254_##key##_g(const int64_t* in, int64_t* out, int64_t n, \
                                  int group, void* stream) {                  \
     using S = bn254::Sched;                                                  \
     if (n <= 0) return 0;                                                    \
-    switch (group) { BN254_COOP_GROUPS(BN254_COOP_CASE_LAUNCH) }             \
+    switch (group) { GROUPS(BN254_COOP_CASE_LAUNCH) }                        \
     return static_cast<int>(cudaErrorInvalidValue);                         \
   }                                                                          \
   extern "C" int bn254_##key(const int64_t* in, int64_t* out, int64_t n,     \
                              void* stream) {                                 \
     const int sms = coop_sms();                                              \
     if (sms <= 0) return static_cast<int>(cudaErrorNoDevice);                \
-    return bn254_##key##_g(in, out, n, bn254::coop_group(n, sms), stream);   \
+    return bn254_##key##_g(in, out, n,                                       \
+                           bn254::coop_group(bn254::rule, n, sms), stream);  \
   }                                                                          \
   extern "C" int bn254_##key##_info(int group, int* info) {                  \
     using S = bn254::Sched;                                                  \
-    switch (group) { BN254_COOP_GROUPS(BN254_COOP_CASE_INFO) }               \
-    return static_cast<int>(cudaErrorInvalidValue);                          \
-  }
+    switch (group) { GROUPS(BN254_COOP_CASE_INFO) }                          \
+    return static_cast<int>(cudaErrorInvalidValue);                         \
+  }                                                                          \
+  BN254_RULE_EXPORTS(key, rule)
 
 #else
 
@@ -580,37 +695,38 @@ static int bn254_bound_faults = 0;
     return bn254_bound_faults;                                               \
   }
 
-// the shared leaf alone, on (18, n) limbs (montmul.cu's arithmetic)
-extern "C" void bn254_host_cios(const int64_t* a, const int64_t* b,
-                                int64_t* out, int64_t n) {
+// the two leaves alone, on (18, n) limbs (montmul.cu's arithmetic)
+template <void (*Leaf)(uint32_t*, const uint32_t*, const uint32_t*)>
+void host_leaf(const int64_t* a, const int64_t* b, int64_t* out, int64_t n) {
   for (int64_t e = 0; e < n; ++e) {
     uint32_t av[bn254::kLimbs], bv[bn254::kLimbs], r[bn254::kLimbs];
     for (int i = 0; i < bn254::kLimbs; ++i) {
       av[i] = static_cast<uint32_t>(a[i * n + e]);
       bv[i] = static_cast<uint32_t>(b[i * n + e]);
     }
-    bn254::cios(r, av, bv);
+    Leaf(r, av, bv);
     for (int i = 0; i < bn254::kLimbs; ++i) out[i * n + e] = r[i];
   }
 }
 
+extern "C" void bn254_host_cios(const int64_t* a, const int64_t* b,
+                                int64_t* out, int64_t n) {
+  host_leaf<bn254::cios>(a, b, out, n);
+}
+
+extern "C" void bn254_host_cios_wide(const int64_t* a, const int64_t* b,
+                                     int64_t* out, int64_t n) {
+  host_leaf<bn254::cios_wide>(a, b, out, n);
+}
 
 // bn254_host_<key>_g(in, out, n, G): the cooperative schedule on the host,
 // each level's ops in the order of the group's threads g = 0..G-1, each
 // thread's share g, g + G, ...; the slots start poisoned (limbs 0xFFFF),
-// so a read of a slot no earlier level wrote fails a bound check.
-// bn254_host_<key>(in, out, n) takes G by the rule for a 132-SM card.
+// so a read of a slot no earlier level wrote fails a bound check. A G that
+// is not instantiated returns -1.
 template <class S>
 int coop_host(const int64_t* in, int64_t* out, int64_t n, int group) {
   bn254_bound_faults = 0;
-#define BN254_COOP_CASE(G) case G:
-  switch (group) {
-    BN254_COOP_GROUPS(BN254_COOP_CASE)
-    break;
-    default:
-      return -1;
-  }
-#undef BN254_COOP_CASE
   std::vector<uint32_t> st(S::kLaneWords);
   const uint16_t* levels = S::levels();
   for (int64_t e = 0; e < n; ++e) {
@@ -625,16 +741,23 @@ int coop_host(const int64_t* in, int64_t* out, int64_t n, int group) {
 
 constexpr int kHostSms = 132;  // the H100's
 
-#define BN254_COOP_KERNEL(key, Sched)                                        \
+// bn254_host_<key>(in, out, n) takes G by the rule for a 132-SM card
+#define BN254_HOST_CASE(G) case G:
+#define BN254_COOP_KERNEL(key, Sched, GROUPS, rule)                          \
   extern "C" int bn254_host_##key##_g(const int64_t* in, int64_t* out,       \
                                       int64_t n, int group) {                \
-    return coop_host<bn254::Sched>(in, out, n, group);                       \
+    switch (group) {                                                         \
+      GROUPS(BN254_HOST_CASE)                                                \
+      return coop_host<bn254::Sched>(in, out, n, group);                     \
+    }                                                                        \
+    return -1;                                                               \
   }                                                                          \
   extern "C" int bn254_host_##key(const int64_t* in, int64_t* out,           \
                                   int64_t n) {                               \
-    return coop_host<bn254::Sched>(in, out, n,                               \
-                                   bn254::coop_group(n, kHostSms));          \
-  }
+    return coop_host<bn254::Sched>(                                          \
+        in, out, n, bn254::coop_group(bn254::rule, n, kHostSms));            \
+  }                                                                          \
+  BN254_RULE_EXPORTS(key, rule)
 
 #endif
 
@@ -643,13 +766,17 @@ BN254_FUSED_KERNEL(fq12_sq)
 BN254_FUSED_KERNEL(fq12_cyc_sq)
 BN254_FUSED_KERNEL(el_pow_step_mul)
 BN254_FUSED_KERNEL(el_pow_step_sq)
-BN254_FUSED_KERNEL(glv_dbl_add)
 BN254_FUSED_KERNEL(fq12_mul_line)
 BN254_FUSED_KERNEL(g2_dbl_step)
 BN254_FUSED_KERNEL(g2_add_step)
-BN254_COOP_KERNEL(miller_dbl_body, CoopMillerDblBody)
-BN254_COOP_KERNEL(expu_step, CoopExpuStep)
-BN254_COOP_KERNEL(miller_dbl_body2, CoopMillerDblBody2)
-BN254_COOP_KERNEL(miller_add_body2, CoopMillerAddBody2)
-BN254_COOP_KERNEL(fq12_mul, CoopFq12Mul)
-BN254_COOP_KERNEL(miller_add_body, CoopMillerAddBody)
+BN254_COOP_KERNEL(miller_dbl_body, CoopMillerDblBody, BN254_COOP_GROUPS,
+                  kCoopRule)
+BN254_COOP_KERNEL(expu_step, CoopExpuStep, BN254_COOP_GROUPS, kCoopRule)
+BN254_COOP_KERNEL(miller_dbl_body2, CoopMillerDblBody2, BN254_COOP_GROUPS,
+                  kCoopRule)
+BN254_COOP_KERNEL(miller_add_body2, CoopMillerAddBody2, BN254_COOP_GROUPS,
+                  kCoopRule)
+BN254_COOP_KERNEL(fq12_mul, CoopFq12Mul, BN254_COOP_GROUPS, kCoopRule)
+BN254_COOP_KERNEL(miller_add_body, CoopMillerAddBody, BN254_COOP_GROUPS,
+                  kCoopRule)
+BN254_COOP_KERNEL(glv_dbl_add, CoopGlvDblAdd, BN254_GLV_GROUPS, kGlvRule)

@@ -240,28 +240,34 @@ def _launch(key: str, packed: torch.Tensor, out: torch.Tensor) -> None:
         raise RuntimeError(f"{key} kernel launch failed: cudaError {rc}")
 
 
-# the lane-cooperative kernels (fused.cu, "Design"): G threads per lane,
-# G picked by the launcher from the lane count and the card's SM count
-COOP = ("miller_dbl_body", "expu_step", "miller_dbl_body2",
-        "miller_add_body2", "fq12_mul", "miller_add_body")
-COOP_INSTANCES = (4, 8, 16, 32, 64)  # the G of fused.cu's BN254_COOP_GROUPS
+# the lane-cooperative kernels (fused.cu, "Design"): G threads per lane over
+# level schedules (kernels/coop_schedule.py), each with the G it is built
+# for (fused.cu's BN254_COOP_GROUPS, BN254_GLV_GROUPS); the launcher picks
+# one by the key's rule from the lane count and the card's SM count
+_GROUPS = (4, 8, 16, 32, 64)
+INSTANCES = {**dict.fromkeys(("miller_dbl_body", "expu_step",
+                              "miller_dbl_body2", "miller_add_body2",
+                              "fq12_mul", "miller_add_body"), _GROUPS),
+             "glv_dbl_add": (1, 2, *_GROUPS)}
+COOP = tuple(INSTANCES)
 COOP_INFO = ("blocks_per_sm", "smem_per_block", "lanes_per_block",
              "registers", "stack_bytes", "threads_per_block")
 
 
-def coop_groups(lib=None) -> tuple[int, ...]:
-    """The group sizes the launchers' rule can pick (fused.cu's
-    kCoopRule), from the CUDA library or a host build `lib`."""
+def coop_groups(key: str, lib=None) -> tuple[int, ...]:
+    """The group sizes the rule of `key` can pick (fused.cu's kCoopRule,
+    kGlvRule), from the CUDA library or a host build `lib`."""
     lib = lib or build.library("fused")
     buf = (ctypes.c_int * 16)()
-    n = lib.bn254_coop_groups(buf, 16)
+    n = getattr(lib, f"{KERNELS[key].symbol}_groups")(buf, 16)
     return tuple(buf[:n])
 
 
-def coop_group(n: int, sms: int, lib=None) -> int:
-    """The group size the launchers pick for n lanes on `sms` SMs."""
+def coop_group(key: str, n: int, sms: int, lib=None) -> int:
+    """The group size the launcher of `key` picks for n lanes on `sms`
+    SMs."""
     lib = lib or build.library("fused")
-    fn = lib.bn254_coop_group
+    fn = getattr(lib, f"{KERNELS[key].symbol}_group")
     fn.argtypes = [ctypes.c_int64, ctypes.c_int]
     fn.restype = ctypes.c_int
     return fn(n, sms)

@@ -10,14 +10,16 @@ Phases, each of which exits non-zero on failure:
 2. The kernel build: nvcc compiles bn254_tpu_torch/kernels/montmul.cu and
    fused.cu (with their shared header bn254_tower.cuh), one compiler per
    source, started together; build seconds and ptxas registers, stack and
-   spills per kernel; for each instantiation (G = 4 ... 64 threads per lane)
-   of the six cooperative kernels (`fused.COOP`: miller_dbl_body,
-   expu_step, miller_dbl_body2, miller_add_body2, fq12_mul and
-   miller_add_body), resident blocks per SM, shared memory per block,
+   spills per kernel; for each instantiation of the lane-cooperative
+   kernels (`fused.INSTANCES`: G = 4 ... 64 of miller_dbl_body, expu_step,
+   miller_dbl_body2, miller_add_body2, fq12_mul and miller_add_body, G = 1
+   ... 64 of glv_dbl_add), resident blocks per SM, shared memory per block,
    lanes per block, registers and stack
    (cudaOccupancyMaxActiveBlocksPerMultiprocessor and
-   cudaFuncGetAttributes, through fused.cu's C exports), and the group size
-   the launcher's rule picks at 1, `independent` and batch + 1 lanes.
+   cudaFuncGetAttributes, through fused.cu's C exports), and the size each
+   launcher's rule picks at the widths the paths run; the SASS instruction
+   counts (cuobjdump, where the toolkit has it) of the kernels over the two
+   leaves, cios and cios_wide.
 3. Kernel vs plain.
    - montmul against its plain torch version, bit for bit, on random limbs
      at the main path's widest shape (54 x batch lanes), a lane count that is
@@ -32,9 +34,11 @@ Phases, each of which exits non-zero on failure:
      carried, zero), a lane count that is no multiple of the 64-thread
      block, and an unbatched (18,) operand; the two-pair Miller bodies also
      with their constant line triple (ca, cb, cc) unbatched in its real
-     place, between batched operands. The six cooperative kernels are held
-     so at every group size the rule can pick, besides the path's own
-     launch.
+     place, between batched operands. The kernels with several threads per
+     lane are held so at every size they are built for, besides the path's
+     own launch; glv_dbl_add also on the complete addition's edge lanes
+     (acc, sel or both the identity, sel = 2acc, sel = -2acc) at the GLV
+     ladder's width.
      Phase 6 adds every further lane count and input bound the paths
      launched a kernel at.
 4. The main path through the user entry points: `api.batch_sign` makes
@@ -45,16 +49,17 @@ Phases, each of which exits non-zero on failure:
    flag exactly the tampered index, its independent fallback through the
    two-pair kernels (65 + 23 launches). Every kernel's launch count is
    reset just before the adaptive run and read just after: exactly 65
-   miller_dbl_body, 23 miller_add_body, 69 expu_step and 24 expu_sq2
-   launches, none of the two-pair bodies, of fq12_sq (which this path runs
-   only inside the Miller bodies) or of the scan loop's step ops, and some
-   launches of montmul, fq12_mul, fq12_cyc_sq, el_pow_step_mul,
-   el_pow_step_sq and glv_dbl_add.
+   miller_dbl_body, 23 miller_add_body, 69 expu_step, 24 expu_sq2, 64
+   glv_dbl_add, 200 el_pow_step_mul and 51 el_pow_step_sq launches, none of
+   the two-pair bodies, of fq12_sq (which this path runs only inside the
+   Miller bodies) or of the scan loop's step ops, and some launches of
+   montmul, fq12_mul and fq12_cyc_sq.
 5. The independent tier at full width, the first `independent` (4,096)
    tuples of the main batch: `api.batch_verify(mode="independent")` runs
    pair2 (the JAX package's default) and must accept all, with exactly 65
    miller_dbl_body2, 23 miller_add_body2, 0 miller_dbl_body/_add_body, 69
-   expu_step and 24 expu_sq2 launches, and one output template learned
+   expu_step, 24 expu_sq2, 134 el_pow_step_mul, 33 el_pow_step_sq and 0
+   glv_dbl_add launches, and one output template learned
    per two-pair body. With three signatures tampered it must flag exactly
    those, and so must the stacked form (the two pairs through the
    single-pair bodies, `pairing_check(*_independent_pairs(...))`, which the
@@ -88,13 +93,16 @@ Phases, each of which exits non-zero on failure:
    its stages (hash, Miller, final exp) for pair2, the stacked form and the
    stacked form with unroll_static_loops=False, in turns; the kernels the
    independent tier shares with the adaptive path at the independent run's
-   widths and launch counts; ms per launch (50 back to back) of every
-   instantiation of the cooperative kernels at 1 lane, 2, 4, 8 and 15
-   lanes per SM, `independent` and batch + 1 lanes (the `coop_sweep` line), the
-   one-lane launch also under torch.profiler.
+   widths and launch counts; ms per launch (50 back to back, the better of
+   two passes over the sizes) of every instantiation of the lane-
+   cooperative kernels (the `coop_sweep` line): the six Miller, exp_u and
+   Fq12 bodies at 1 lane, 2, 4, 8 and 15 lanes per SM, `independent` and
+   batch + 1 lanes; glv_dbl_add at 1 lane, 2 lanes per SM, `independent`,
+   batch + 1 and 2 x batch lanes; at one lane also each size's device time
+   under torch.profiler.
 
 It prints a kernels JSON line with every fused kernel on the path that
-launches it (the cooperative ones with the group size at each width the
+launches it (the lane-cooperative ones with their G at each width the
 path runs them, `groups`), each with that path's name and launch count (`adaptive`; the
 two-pair bodies `independent`; fq12_sq and the three step ops
 `adaptive_no_unroll`), the shared kernels' rows for the independent path on
@@ -108,6 +116,7 @@ import argparse
 import contextlib
 import inspect
 import json
+import pathlib
 import re
 import subprocess
 import sys
@@ -123,16 +132,25 @@ LEAF_MADS = 2 * 18 * 18  # 32-bit multiply-adds of one CIOS leaf multiply
 
 # the main path's launches of each fused kernel per batch: 65 NAF digits;
 # 21 nonzero digits + 2 Frobenius steps; 3 exp_u x 23 nonzero / 8 zero
-# windows. The other kernels' counts depend on the batch; they must be > 0,
-# except those the path never runs (NOT_ON_MAIN_PATH, which must be 0).
+# windows; 64 steps of the GLV ladder (128-bit weights); the nonzero / zero
+# 3-bit windows of the three fixed powers, the hash's square root ((p+1)/4:
+# 68 / 15), the batched to_affine's and the easy part's inversions (p-2:
+# 66 / 18 each). The other kernels' counts depend on the batch; they must
+# be > 0, except those the path never runs (NOT_ON_MAIN_PATH, which must
+# be 0).
 MAIN_PATH_LAUNCHES = {"miller_dbl_body": 65, "miller_add_body": 23,
-                      "expu_step": 69, "expu_sq2": 24}
+                      "expu_step": 69, "expu_sq2": 24, "glv_dbl_add": 64,
+                      "el_pow_step_mul": 68 + 2 * 66,
+                      "el_pow_step_sq": 15 + 2 * 18}
 # the independent tier on the card (pair2): the same schedule through the
-# two-pair bodies, then the final exponentiation at one lane per tuple
+# two-pair bodies, then the final exponentiation at one lane per tuple;
+# the square root and one inversion, no GLV ladder
 PAIR2 = ("miller_dbl_body2", "miller_add_body2")
 INDEPENDENT_LAUNCHES = {"miller_dbl_body2": 65, "miller_add_body2": 23,
                         "miller_dbl_body": 0, "miller_add_body": 0,
-                        "expu_step": 69, "expu_sq2": 24}
+                        "expu_step": 69, "expu_sq2": 24,
+                        "el_pow_step_mul": 68 + 66, "el_pow_step_sq": 15 + 18,
+                        "glv_dbl_add": 0}
 # config.unroll_static_loops=False: the scan-form Miller loop, one launch
 # per step op: 65 squares and doublings, 21 + 2 additions, a line fold after
 # each of the 88 steps; exp_u's scan form adds 2 x 31 cyclotomic squares and
@@ -198,12 +216,49 @@ def ptxas_summary(log: str) -> list[str]:
         m = re.search(r"Used (\d+) registers", line)
         if m and entry and "kernel" in entry:
             stack, st, ld = props.get(entry, ("?", "?", "?"))
-            coop = re.search(r"coop_kernelIN5bn254\d+(\w+?)ELi(\d+)E", entry)
-            short = (f"coop_kernel<{coop.group(1)}, {coop.group(2)}>" if coop
-                     else re.sub(r"^_Z\w*?\d+(\w+_kernel)\w*$", r"\1", entry))
+            short = kernel_name(entry)
             out.append(f"{short}: {m.group(1)} registers, {stack} B stack "
                        f"frame, {st} B spill stores, {ld} B spill loads")
     return out
+
+
+def kernel_name(mangled: str) -> str:
+    """coop_kernel<Sched, G>, <name>_kernel<T> or <name>_kernel."""
+    coop = re.search(r"coop_kernelIN5bn254\d+(\w+?)ELi(\d+)E", mangled)
+    if coop:
+        return f"coop_kernel<{coop.group(1)}, {coop.group(2)}>"
+    tmpl = re.search(r"^_Z\d+(\w+_kernel)ILi(\d+)E", mangled)
+    if tmpl:
+        return f"{tmpl.group(1)}<{tmpl.group(2)}>"
+    return re.sub(r"^_Z\w*?\d+(\w+_kernel)\w*$", r"\1", mangled)
+
+
+def sass_counts(nvcc: str, lib_path: str, wanted) -> list[str]:
+    """Instructions per kernel of a library's SASS (cuobjdump -sass, from
+    nvcc's toolkit; a kernel's listing holds the device functions it calls),
+    for the kernels whose short name `wanted` accepts: the total and the ten
+    commonest opcodes."""
+    tool = pathlib.Path(nvcc).with_name("cuobjdump")
+    if not tool.is_file():
+        return [f"cuobjdump not found beside {nvcc}"]
+    r = subprocess.run([str(tool), "-sass", lib_path], capture_output=True,
+                       text=True, timeout=300)
+    if r.returncode != 0:
+        return [f"cuobjdump failed: {r.stderr.strip()[:200]}"]
+    counts, fn = {}, None
+    for line in r.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = kernel_name(m.group(1))
+            counts[fn] = {} if wanted(fn) else None
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                      line)
+        if m and fn and counts.get(fn) is not None:
+            counts[fn][m.group(1)] = counts[fn].get(m.group(1), 0) + 1
+    return [f"{fn}: {sum(c.values())} instructions, "
+            + json.dumps(dict(sorted(c.items(), key=lambda kv: -kv[1])[:10]))
+            for fn, c in counts.items() if c]
 
 
 def main() -> int:
@@ -227,6 +282,8 @@ def main() -> int:
         from bn254_tpu_torch import api
         from bn254_tpu_torch import config as C
         from bn254_tpu_torch.constants import MONT_R, NLIMBS, P, R
+        from bn254_tpu_torch.curve import jacobian as J
+        from bn254_tpu_torch.curve.ops import FqOps
         from bn254_tpu_torch.dist import batch_verify as BV
         from bn254_tpu_torch.fields import limbs as L
         from bn254_tpu_torch.fields import tower as T
@@ -274,13 +331,21 @@ def main() -> int:
         for line in ptxas_summary(build.build_log.get(lib, "")):
             print(f"build: ptxas: {line}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    coop_picks = FK.coop_groups()  # the group sizes the rule can pick
-    for key in FK.COOP:
-        for g in FK.COOP_INSTANCES:
-            print(f"build: coop {key} G={g}: "
+    K = C.DEFAULT.k_candidates
+
+    for key, sizes in FK.INSTANCES.items():
+        for g in sizes:
+            print(f"build: {key} G={g}: "
                   + json.dumps(FK.coop_info(key, g)))
-    print(f"build: coop rule on {sms} SMs picks G in {list(coop_picks)}: "
-          + json.dumps({n: FK.coop_group(n, sms) for n in (1, NI, B + 1)}))
+        print(f"build: {key}'s rule on {sms} SMs picks "
+              f"{list(FK.coop_groups(key))}: " + json.dumps(
+                  {n: FK.coop_group(key, n, sms)
+                   for n in (1, NI, B + 1, 2 * B, NI * K, B * K)}))
+    # the kernels over cios_wide, and over cios for comparison
+    for line in sass_counts(nvcc, str(build._output("fused")), lambda fn: (
+            fn.startswith(("el_pow_step_", "coop_kernel<CoopGlvDblAdd",
+                           "coop_kernel<CoopMillerDblBody, 8>")))):
+        print(f"build: sass: {line}")
 
     # -- 3. kernel vs plain ----------------------------------------------------
     gen = torch.Generator(device="cpu").manual_seed(args.seed)
@@ -358,7 +423,6 @@ def main() -> int:
     # exponentiation; the hash's B x k square roots; the (H, sig) pair axis
     # of the GLV ladder; the two-pair bodies at one lane per tuple of the
     # independent tier
-    K = C.DEFAULT.k_candidates
     WIDTHS = {"miller_dbl_body": B + 1, "miller_add_body": B + 1,
               "miller_dbl_body2": NI, "miller_add_body2": NI,
               "expu_step": 1, "expu_sq2": 1, "fq12_mul": (B + 1) // 2,
@@ -384,9 +448,28 @@ def main() -> int:
     def in_bounds(args_):
         return tuple((e.vmax, e.lmax) for e in L.tree_leaves(args_))
 
+    def glv_edge_inputs(n):
+        """glv_dbl_add's inputs on n lanes at the pins, lanes 0-4 the
+        complete addition's edges: acc the identity, sel the identity,
+        both (random X and Y: the last select wins); sel = 2acc (the
+        doubling select), sel = -2acc (the identity)."""
+        x = np.stack([SM.bounded_limbs(rng, *PINS, n) for _ in range(6)])
+        x[2, :, 0] = 0  # acc.z
+        x[5, :, 1] = 0  # sel.z
+        x[[0, 1, 3, 4], :, 2] = SM.bounded_limbs(rng, *PINS, 8)[:, 4:].T
+        d = J.double(FqOps, J.JPoint(*[CV.from_numpy(x[i, :, 3:5], *PINS)
+                                       for i in range(3)]))
+        d2 = [L.canon(e).arr.numpy() for e in (d.x, d.y, d.z)]
+        neg_y = L.canon(L.neg_mod(d.y)).arr.numpy()
+        for i in range(3):
+            x[3 + i, :, 3] = d2[i][:, 0]
+            x[3 + i, :, 4] = (d2[0], neg_y, d2[2])[i][:, 1]
+        return FK.args_from_leaves("glv_dbl_add", [
+            CV.from_numpy(e, *PINS, dev) for e in x])
+
     def with_group(key, args_, group):
-        """`fused_op`'s CUDA path with the cooperative kernel of `key`
-        launched at `group` threads per lane (not counted)."""
+        """`fused_op`'s CUDA path with the kernel of `key` launched at
+        `group` threads per lane (not counted)."""
         body = FK.signature(key)[0]
         template = FK._out_struct(body, in_bounds(args_), args_)
         packed, batch = FK.pack(L.tree_leaves(args_))
@@ -401,9 +484,8 @@ def main() -> int:
     def compare(key, tag, args_):
         body = FK.signature(key)[0]
         gots = {"": FK.fused_op(body, key, *args_)}
-        if key in FK.COOP:
-            for g in coop_picks:
-                gots[f" at G={g}"] = with_group(key, args_, g)
+        for g in FK.INSTANCES.get(key, ()):
+            gots[f" at G={g}"] = with_group(key, args_, g)
         with plain_leaf():
             want = body(*args_)
         torch.cuda.synchronize()
@@ -427,8 +509,8 @@ def main() -> int:
                 fail(f"{key}{how} differs from its plain body on {tag} by value")
         checked[key].add((gl[0].arr[0].numel(), in_bounds(args_)))
         shape = tuple(gl[0].arr.shape)
-        groups = (f" (the path's launch and G = {list(coop_picks)})"
-                  if key in FK.COOP else "")
+        groups = (f" (the path's launch and G = {list(FK.INSTANCES[key])})"
+                  if key in FK.INSTANCES else "")
         print(f"kernel vs plain: {key}: {tag}: {len(gl)} x {shape} equal by "
               f"canonical value, within the declared bounds{groups}")
 
@@ -451,6 +533,9 @@ def main() -> int:
                 compare(key, "the constant line (ca, cb, cc) unbatched (18,) "
                         f"between batched operands, {NI} lanes",
                         body_inputs(key, NI, unbatched=("ca", "cb", "cc")))
+            if key == "glv_dbl_add":
+                compare(key, "the complete addition's five edge lanes "
+                        f"first, {n} lanes", glv_edge_inputs(n))
 
     # -- 4. the main path --------------------------------------------------------
     def reset_counts():
@@ -905,40 +990,51 @@ def main() -> int:
               "runs): " + json.dumps(
                   [{k: round(v, 4) for k, v in r.items()} for r in runs]))
 
-    # the cooperative kernels: ms per launch of every instantiation at 1
-    # lane, at 2, 4, 8 and 15 lanes per SM (the rule's steps), at the
-    # independent tier's and the Miller rows' widths; the one-lane launch
-    # of the rule's G also under torch.profiler
+    # the lane-cooperative kernels: ms per launch of every instantiation
+    # at the widths of its rule's steps and of its paths: the six Miller,
+    # exp_u and Fq12 bodies at 1 lane, 2, 4, 8 and 15 lanes per SM, the
+    # independent tier's and the Miller rows' widths; the GLV step at 1
+    # lane, 2 lanes per SM, the independent tier's, the Miller rows' and
+    # the ladder's widths; the better of two passes over the sizes, and at
+    # one lane each size's device time under torch.profiler
+    sweep_widths = {**dict.fromkeys(FK.COOP, (1, 2 * sms, 4 * sms, 8 * sms,
+                                              15 * sms, NI, B + 1)),
+                    "glv_dbl_add": (1, 2 * sms, NI, B + 1, 2 * B)}
     coop_sweep = []
     with torch.inference_mode():
-        for key in FK.COOP:
-            for n in sorted({1, 2 * sms, 4 * sms, 8 * sms, 15 * sms, NI,
-                             B + 1}):
+        for key, widths in sweep_widths.items():
+            for n in sorted(set(widths)):
                 packed, _ = FK.pack(L.tree_leaves(body_inputs(key, n)))
                 out = torch.empty((FK.arity(key)[1], NLIMBS, n),
                                   dtype=torch.int64, device=dev)
-                ms = {}
-                for g in FK.COOP_INSTANCES:
-                    FK.launch_group(key, packed, out, g)
-                    ms[g] = events_ms(torch, lambda: FK.launch_group(
-                        key, packed, out, g), reps=50)[1]
+                ms = {}  # the better of two passes over the sizes
+                for _ in range(2):
+                    for g in FK.INSTANCES[key]:
+                        FK.launch_group(key, packed, out, g)
+                        t = events_ms(torch, lambda: FK.launch_group(
+                            key, packed, out, g), reps=50)[1]
+                        ms[g] = min(ms.get(g, t), t)
                 row = {"key": key, "lanes": n, "per_sm": -(-n // sms),
-                       "rule_group": FK.coop_group(n, sms),
+                       "rule_group": FK.coop_group(key, n, sms),
                        "ms_by_group": ms}
-                if n == 1:
-                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                        for _ in range(50):
-                            FK._launch(key, packed, out)
-                        torch.cuda.synchronize()
-                    dev_us = sum(getattr(e, "self_device_time_total", 0)
-                                 for e in prof.key_averages()
-                                 if "coop_kernel" in e.key)
-                    row["profiler_ms"] = dev_us / 1e3 / 50 if dev_us else None
+                if n == 1:  # device time alone: launches cost as much here
+                    row["profiler_ms_by_group"] = {}
+                    for g in FK.INSTANCES[key]:
+                        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                            for _ in range(50):
+                                FK.launch_group(key, packed, out, g)
+                            torch.cuda.synchronize()
+                        dev_us = sum(getattr(e, "self_device_time_total", 0)
+                                     for e in prof.key_averages()
+                                     if "_kernel" in e.key)
+                        row["profiler_ms_by_group"][g] = (
+                            dev_us / 1e3 / 50 if dev_us else None)
                 coop_sweep.append(row)
                 print(f"coop {key}: {n} lanes ({row['per_sm']} a SM), ms per "
-                      f"launch by G {json.dumps(ms)}, the rule's G="
-                      f"{row['rule_group']}"
-                      + (f", profiler {row['profiler_ms']} ms a launch"
+                      f"launch by G {json.dumps(ms)}, the rule's "
+                      f"G={row['rule_group']}"
+                      + (", profiler ms a launch by "
+                         f"G {json.dumps(row['profiler_ms_by_group'])}"
                          if n == 1 else ""))
     print(json.dumps({"coop_sweep": coop_sweep}))
 
@@ -997,8 +1093,8 @@ def main() -> int:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None,
         }
-        if key in FK.COOP:  # threads per lane at each width the path runs
-            row["groups"] = {str(w): FK.coop_group(w, sms)
+        if key in FK.INSTANCES:  # G at each width it runs
+            row["groups"] = {str(w): FK.coop_group(key, w, sms)
                              for w in sorted({n, *widths[key]})}
         return row
 

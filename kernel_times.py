@@ -3,15 +3,19 @@
 
     python3 kernel_times.py --key fq12_mul --lanes 1,2,4,4096 [--repo DIR]
 
-For each key it times the bare kernel (`fused._launch`: for a cooperative
-kernel, the group size the launcher's rule picks) on random inputs at the
-pinned bounds (values < 2^262, limbs < 2^16) made from a fixed seed, CUDA
-events around 50 back-to-back launches after one warm launch. `--repo`
+For each key it times the bare kernel (`fused._launch`: for a
+lane-cooperative kernel, the group size G its launcher's rule picks) on
+random inputs at the pinned bounds (values < 2^262, limbs < 2^16) made
+from a fixed seed, CUDA events around 50 back-to-back launches after one
+warm launch, and the same 50 launches' device time under torch.profiler
+(at a few lanes the launches themselves take longer than the kernel).
+`--repo`
 names the checkout whose `bn254_tpu_torch` is built and timed (default:
 this file's), so that the kernels of another commit are timed by the same
 code. It prints the card's name and power limit, then one JSON object per
 key:
-{"key", "repo", "lanes": {n: ms}, "groups": {n: G} or null}.
+{"key", "repo", "lanes": {n: ms}, "device_ms": {n: ms},
+"groups": {n: G} or null}.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ def main() -> int:
 
     import numpy as np
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
@@ -63,7 +68,7 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for key in args.key:
         n_in, n_out = FK.arity(key)
-        ms, groups = {}, {}
+        ms, device_ms, groups = {}, {}, {}
         for n in widths:
             packed, _ = FK.pack([CV.from_numpy(
                 SM.bounded_limbs(rng, *pins, n), *pins, dev)
@@ -80,10 +85,19 @@ def main() -> int:
             end.record()
             end.synchronize()
             ms[n] = start.elapsed_time(end) / REPS
-            if key in getattr(FK, "COOP", ()):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(REPS):
+                    FK._launch(key, packed, out)
+                torch.cuda.synchronize()
+            dev_us = sum(getattr(e, "self_device_time_total", 0)
+                         for e in prof.key_averages() if "_kernel" in e.key)
+            device_ms[n] = dev_us / 1e3 / REPS if dev_us else None
+            if key in getattr(FK, "INSTANCES", {}):
+                groups[n] = FK.coop_group(key, n, sms)
+            elif key in getattr(FK, "COOP", ()):  # one rule for all keys
                 groups[n] = FK.coop_group(n, sms)
         print(json.dumps({"key": key, "repo": str(repo), "lanes": ms,
-                          "groups": groups or None}))
+                          "device_ms": device_ms, "groups": groups or None}))
     return 0
 
 

@@ -1,19 +1,21 @@
 """The lane-cooperative kernels (`miller_dbl_body`, `expu_step`,
-`miller_dbl_body2`, `miller_add_body2`, `fq12_mul`, `miller_add_body`) off
-the card.
+`miller_dbl_body2`, `miller_add_body2`, `fq12_mul`, `miller_add_body`,
+`glv_dbl_add`) off the card.
 
 Their level schedules (`kernels/coop_schedule.py`, generated into
 `coop_schedule.cuh`) are checked twice:
 
 * in Python: the tables run level by level on Python ints (Montgomery
-  products), each level reading only slots that earlier levels wrote and
-  writing no slot another op of the level reads; every product of the
-  formula computed exactly once (117, 90, 160, 123, 54 and 80, plus one
-  load per input El, no two products of the same operands); every output
-  written once, equal to the plain body by value;
+  products; `glv_dbl_add`'s masked selects as SEL chains), each level
+  reading only slots that earlier levels wrote and writing no slot another
+  op of the level reads; every product of the formula computed exactly
+  once (117, 90, 160, 123, 54, 80 and 30, plus one load per input El, no
+  two products of the same operands); every output written once, equal to
+  the plain body by value; the six older schedules' tables byte for byte
+  as they were before `glv_dbl_add` and the SEL kind joined;
 * through the g++ build of `fused.cu` (`-DBN254_CHECK_BOUNDS`), whose host
   launchers run the same `coop_op` over each level with the group's
-  threads g = 0..G-1 in turn: for every group size the kernels are built
+  threads g = 0..G-1 in turn: for every group size each kernel is built
   for, equal to the plain body by canonical value with no failed bound
   check, on pinned and boundary inputs (`utils/samples.bounded_limbs`);
   and with some arguments as unbatched (18,) Els that `fused.pack`
@@ -22,6 +24,7 @@ Their level schedules (`kernels/coop_schedule.py`, generated into
 """
 
 import ctypes
+import hashlib
 import inspect
 import pathlib
 import shutil
@@ -38,7 +41,6 @@ from bn254_tpu_torch.utils import convert as CV
 from bn254_tpu_torch.utils import samples as SM
 
 SRC = pathlib.Path(FK.__file__).resolve().parent / "fused.cu"
-GROUPS = FK.COOP_INSTANCES
 PINNED = (L.STD_BOUND, 1 << 16)
 N = 5
 
@@ -77,11 +79,42 @@ def test_header_is_current():
         "run python -m bn254_tpu_torch.kernels.coop_schedule")
 
 
+# sha256 of each older schedule's ops, chain steps and level starts, as
+# 16-bit little-endian words: the tables these kernels were measured with
+TABLE_DIGESTS = {
+    "miller_dbl_body":
+        "cc950a6527d7db53090db8c5d3bd2aecadd6a149b13277d9cdbc94e4a51d684a",
+    "expu_step":
+        "eca09c919e79eb34d0f7a7ee7cfbe5b8ae4f5c5c2fcf8d23a4e317517b10cea7",
+    "miller_dbl_body2":
+        "2adb212980b1fff0397f584b826c2e69ca037426b0af76f6f0ee42b1dfa8da63",
+    "miller_add_body2":
+        "c81ab1a770dd0424f35c40ba34c82b737183f8b07ab658e863bad542096d2e80",
+    "fq12_mul":
+        "6cbe0f443b366436a662d0d086a43c32977843e96277436fbb064db8249b0db3",
+    "miller_add_body":
+        "e43c56853bf90427553c2c5b429104f7cf758d570535c8efc7672299c1491f2a",
+}
+
+
+def table_digest(s):
+    words = [w for op in s.ops for w in (op.kind << 14 | (op.out & 0x3FFF),
+                                          op.gout, op.a, op.b)]
+    data = np.array(words + s.steps + s.level_first, dtype="<u2").tobytes()
+    return hashlib.sha256(data).hexdigest()
+
+
+def test_older_tables_are_unchanged():
+    assert {k: table_digest(CS.schedule(k)) for k in TABLE_DIGESTS} == \
+        TABLE_DIGESTS
+
+
 def run_table(s, ins):
-    """The schedule on Python ints (LOAD: the input mod p; MUL: a b / R),
-    level by level; fails on a read of a slot no earlier level wrote, a
-    slot written twice in a level or read there by another op, and an
-    output written twice. Returns (outputs, operand pairs of the MULs)."""
+    """The schedule on Python ints (LOAD: the input mod p; MUL: a b / R;
+    SEL: its takes under its zero tests), level by level; fails on a read
+    of a slot no earlier level wrote, a slot written twice in a level or
+    read there by another op, and an output written twice. Returns
+    (outputs, operand pairs of the MULs)."""
     rinv = pow(MONT_R, -1, P)
     slots, written, outs, pairs = {}, {}, [None] * s.n_out, []
     mask = (1 << CS.SLOT_BITS) - 1
@@ -99,6 +132,19 @@ def run_table(s, ins):
                 a, b = rd(op.a), rd(op.b)
                 pairs.append(frozenset((a, b)))
                 v = a * b * rinv % P
+            elif op.kind == CS.SEL:
+                v, hold = None, True
+                for w in s.steps[op.a:op.a + op.b]:
+                    code, x = w >> CS.SLOT_BITS, w & mask
+                    if code in (CS.IF_ZERO, CS.IF_NONZERO):
+                        hold &= (rd(x) == 0) == (code == CS.IF_ZERO)
+                        continue
+                    if code == CS.TAKE:
+                        y = rd(x)
+                    else:
+                        y = MONT_R % P if code == CS.TAKE_ONE else 0
+                    assert v is not None or hold  # the first step takes
+                    v, hold = y if hold else v, True
             else:
                 v = None
                 for w in s.steps[op.a:op.a + op.b]:
@@ -167,8 +213,9 @@ def check_host(lib, key, group, packed, bounds):
         assert vals == want[i], (key, group, i)
 
 
-@pytest.mark.parametrize("group", GROUPS)
-@pytest.mark.parametrize("key", sorted(CS.BODIES))
+@pytest.mark.parametrize("key, group", [
+    (k, g) for g in max(FK.INSTANCES.values(), key=len)
+    for k in sorted(CS.BODIES) if g in FK.INSTANCES[k]])
 def test_host_schedule_matches_plain(host_lib, key, group):
     check_host(host_lib, key, group, inputs(key, PINNED, group), PINNED)
 
@@ -216,7 +263,7 @@ def test_host_schedule_with_unbatched_constants(host_lib, key):
     with FK.kernel_mode():
         want = [[int(v) % P for v in L.to_ints(e)]
                 for e in L.tree_leaves(body(*args))]
-    for group in GROUPS:
+    for group in FK.INSTANCES[key]:
         got = np.zeros((FK.arity(key)[1], NLIMBS, N), dtype=np.int64)
         assert host(host_lib, key)(packed.ctypes.data, got.ctypes.data, N,
                                    group) == 0
@@ -224,15 +271,20 @@ def test_host_schedule_with_unbatched_constants(host_lib, key):
 
 
 def test_group_rule(host_lib):
-    """The rule picks only instantiated sizes, covers one lane (the shared
-    final exponentiation), 4,096 (the independent tier) and 8,193 lanes
-    (the B=8192 Miller rows) on a 132-SM card, takes no larger group for
-    more lanes, and the host refuses a size with no instantiation."""
-    picks = FK.coop_groups(host_lib)
-    assert set(picks) <= set(GROUPS)
-    by_n = [FK.coop_group(n, 132, host_lib) for n in (1, 132, 4096, 8193, 1 << 20)]
-    assert set(by_n) <= set(picks)
-    assert by_n == sorted(by_n, reverse=True)
-    packed = inputs("expu_step", PINNED, 0, n=1)
-    out = np.zeros((12, NLIMBS, 1), dtype=np.int64)
-    assert host(host_lib, "expu_step")(packed.ctypes.data, out.ctypes.data, 1, 12) == -1
+    """Each cooperative kernel's rule picks only instantiated sizes, at
+    one lane (the shared final exponentiation), 4,096 (the independent
+    tier), 8,193 (the B=8192 Miller rows), 16,384 (the GLV ladder) and more
+    lanes on a 132-SM card, takes no larger size for more lanes, and the
+    host refuses a size with no instantiation."""
+    for key, sizes in FK.INSTANCES.items():
+        picks = FK.coop_groups(key, host_lib)
+        assert set(picks) <= set(sizes), key
+        by_n = [FK.coop_group(key, n, 132, host_lib)
+                for n in (1, 132, 4096, 8193, 16384, 65536, 1 << 20)]
+        assert set(by_n) <= set(picks), key
+        assert by_n == sorted(by_n, reverse=True), key
+    for key, size in (("expu_step", 12), ("expu_step", 1), ("glv_dbl_add", 3)):
+        packed = inputs(key, PINNED, 0, n=1)
+        out = np.zeros((FK.arity(key)[1], NLIMBS, 1), dtype=np.int64)
+        assert host(host_lib, key)(packed.ctypes.data, out.ctypes.data, 1,
+                                   size) == -1

@@ -8,9 +8,10 @@ every Fp result < 2p with limbs < 2^15, and every loaded value < 2^270.
 Each body is held against the port's plain body (what CPU tensors run) on 5
 lanes, boundary lanes included: by canonical value, and every output within
 the bounds the plain body declares; the two-pair Miller bodies also with
-their constant line triple unbatched. The shared leaf `cios` is held bit for
-bit against `montmul_plain`. This is the only run of the kernels'
-arithmetic off the card.
+their constant line triple unbatched; `glv_dbl_add`'s edge lanes at every
+group size G and `el_pow_step_mul` on lazy inputs. The two leaves, `cios` and `cios_wide`, are held bit
+for bit against `montmul_plain` and each other. This is the only run of the
+kernels' arithmetic off the card.
 """
 
 import ctypes
@@ -82,23 +83,28 @@ def test_bounded_limbs_reach_their_edges(vmax, lmax):
     assert int(x[:, 1].max()) < 1 << 15
 
 
-def host_fn(lib, key):
-    """bn254_host_<key>(in, out, n) -> failed bound checks."""
-    fn = getattr(lib, f"bn254_host_{key}")
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
-    fn.restype = ctypes.c_int
-    return fn
+def host_fn(lib, key, group=None):
+    """bn254_host_<key>(in, out, n) -> failed bound checks; with `group`,
+    bn254_host_<key>_g at that many threads per lane."""
+    args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
+    if group is None:
+        fn = getattr(lib, f"bn254_host_{key}")
+        fn.argtypes, fn.restype = args, ctypes.c_int
+        return fn
+    fn = getattr(lib, f"bn254_host_{key}_g")
+    fn.argtypes, fn.restype = args + [ctypes.c_int], ctypes.c_int
+    return lambda inp, out, n: fn(inp, out, n, group)
 
 
-def check_against_plain(lib, key, packed, bounds=PINNED):
-    """The host build of `key` on `packed` against the plain body (CPU
-    `fused_op`) by canonical value and the declared bounds; returns the
-    plain body's output leaves."""
+def check_against_plain(lib, key, packed, bounds=PINNED, group=None):
+    """The host build of `key` (at `group` threads per lane, else by its
+    rule) on `packed` against the plain body (CPU `fused_op`) by canonical
+    value and the declared bounds; returns the plain body's output leaves."""
     n_in, n_out = FK.arity(key)
     assert packed.shape == (n_in, NLIMBS, N)
     inp = np.ascontiguousarray(packed)
     got = np.zeros((n_out, NLIMBS, N), dtype=np.int64)
-    faults = host_fn(lib, key)(inp.ctypes.data, got.ctypes.data, N)
+    faults = host_fn(lib, key, group)(inp.ctypes.data, got.ctypes.data, N)
     assert faults == 0, f"{faults} bound checks failed in the host build"
 
     args = FK.args_from_leaves(
@@ -132,25 +138,67 @@ def test_host_load_carries_lazy_limbs(host_lib):
     check_against_plain(host_lib, "fq12_mul", x, (1 << 263, 1 << 20))
 
 
-def test_host_glv_step_edge_cases(host_lib):
-    """The complete addition's selects: lane 0 has acc the identity (Z = 0),
-    lane 1 sel the identity, lane 2 both; lane 3 adds sel = 2acc (the
-    doubling branch), lane 4 adds sel = -2acc (P + (-P), the identity)."""
-    rng = np.random.default_rng(48)
+def glv_edge_lanes(rng):
+    """(6, 18, 5) limbs of glv_dbl_add's edge lanes: lane 0 has acc the
+    identity (Z = 0), lane 1 sel the identity, lane 2 both, with random X
+    and Y (the last select, p1, wins); lane 3 adds sel = 2acc (the doubling
+    branch), lane 4 adds sel = -2acc (P + (-P), the identity)."""
     x = boundary_limbs(rng, 6)
     x[2, :, 0] = 0  # acc.z
     x[5, :, 1] = 0  # sel.z
+    x[[0, 1, 3, 4], :, 2] = SM.bounded_limbs(rng, *PINNED, 8)[:, 4:].T
     acc = J.JPoint(*[CV.from_numpy(x[i], *PINNED) for i in range(3)])
     d = [L.canon(e).arr.numpy() for e in J.double(FqOps, acc)]
     neg_dy = L.canon(L.neg_mod(J.double(FqOps, acc).y)).arr.numpy()
     for i in range(3):
         x[3 + i, :, 3] = d[i][:, 3]
         x[3 + i, :, 4] = (d[0], neg_dy, d[2])[i][:, 4]
-    out = check_against_plain(host_lib, "glv_dbl_add", x)
-    z = [int(v) % P for v in L.to_ints(out[2])]
-    assert z[2] == 0 and z[4] == 0 and z[3] != 0
+    return x
+
+
+def test_host_glv_step_edge_cases(host_lib):
+    """The complete addition's selects (`glv_edge_lanes`) through the
+    cooperative host build at every group size G."""
+    x = glv_edge_lanes(np.random.default_rng(48))
     sel_z = [int(v) % P for v in L.to_ints(x[5])]
-    assert z[0] == sel_z[0]  # acc at infinity: the sum is sel
+    for group in FK.INSTANCES["glv_dbl_add"]:
+        out = check_against_plain(host_lib, "glv_dbl_add", x, group=group)
+        z = [int(v) % P for v in L.to_ints(out[2])]
+        assert z[2] == 0 and z[4] == 0 and z[3] != 0
+        assert z[0] == sel_z[0]  # acc at infinity: the sum is sel
+
+
+@pytest.mark.parametrize("bounds", [PINNED, (1 << 262, 1 << 20)],
+                         ids=["pins", "lazy"])
+def test_host_pow_step_mul(host_lib, bounds):
+    """el_pow_step_mul's chain of cios_wide products against
+    `_pow_step_mul`, at the pins and on lazy inputs (values < 2^262, limbs
+    < 2^20, carried by the load)."""
+    rng = np.random.default_rng(61)
+    x = np.stack([SM.bounded_limbs(rng, *bounds, N) for _ in range(2)])
+    check_against_plain(host_lib, "el_pow_step_mul", x, bounds)
+
+
+def leaf_operands(kind, rng, n=64):
+    """(a, b) limbs for the leaf: random within the contract (limbs <
+    2^16, a b + R p < 2^538); boundary lanes (`samples.bounded_limbs` at
+    the pins: the largest value with lazy and with carried limbs, zero),
+    one lane times one; or every limb 0x7FFF or 0xFFFF (past the
+    contract's value bound: the three leaves still agree, as each keeps
+    its columns exact and drops the same final carry)."""
+    if kind in (0x7FFF, 0xFFFF):
+        a = np.full((NLIMBS, n), kind, dtype=np.int64)
+        return a, a.copy()
+    if kind == "boundary":
+        a, b = (SM.bounded_limbs(rng, *PINNED, n) for _ in range(2))
+        b[:, 3] = 0
+        b[0, 3] = 1
+        return a, b
+    a = rng.integers(0, 1 << 16, size=(NLIMBS, n), dtype=np.int64)
+    b = rng.integers(0, 1 << 16, size=(NLIMBS, n), dtype=np.int64)
+    a[NLIMBS - 1] = rng.integers(0, 1 << 7, size=n)
+    b[NLIMBS - 1] = rng.integers(0, 1 << 7, size=n)
+    return a, b
 
 
 @pytest.fixture()
@@ -304,6 +352,26 @@ def same_point(a, b):
     y = L.eq(L.mont_mul(L.mont_mul(a.y, z2), b.z),
              L.mont_mul(L.mont_mul(b.y, z1), a.z))
     return x & y
+
+
+@pytest.mark.parametrize("kind", ["random", "boundary", 0x7FFF, 0xFFFF],
+                         ids=["random", "boundary", "all-7fff", "all-ffff"])
+def test_host_wide_leaf_is_bit_exact(host_lib, kind):
+    """cios_wide (64-bit columns) equals cios and montmul_plain limb for
+    limb."""
+    a, b = leaf_operands(kind, np.random.default_rng(9))
+    n = a.shape[1]
+    outs = {}
+    for name in ("bn254_host_cios", "bn254_host_cios_wide"):
+        fn = getattr(host_lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64]
+        fn.restype = None
+        outs[name] = np.zeros((NLIMBS, n), dtype=np.int64)
+        fn(np.ascontiguousarray(a).ctypes.data,
+           np.ascontiguousarray(b).ctypes.data, outs[name].ctypes.data, n)
+    want = MK.montmul_plain(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    assert np.array_equal(outs["bn254_host_cios_wide"], want)
+    assert np.array_equal(outs["bn254_host_cios"], want)
 
 
 def test_host_leaf_is_bit_exact_with_montmul_plain(host_lib):
