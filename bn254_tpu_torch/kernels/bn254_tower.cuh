@@ -12,7 +12,8 @@
 // chain, no conditional subtraction. Its contract: operand limbs < 2^16 and
 // a * b + R * p < 2^538 (fields/limbs.py:mont_mul asserts it on the host).
 // `cios_wide` computes the same limbs with 64-bit columns (one IMAD.WIDE a
-// multiply-add); glv_dbl_add and el_pow_step_mul run it, the rest cios.
+// multiply-add); glv_dbl_add, expu_sq2, fq12_cyc_sq and el_pow_step_mul
+// run it, the rest cios.
 //
 // Reduction schedule of the Fp/Fq2/.../Fq12 functions (their own, not the
 // plain bodies' lazy one): every Fp they return is fully carried (limbs
@@ -490,53 +491,6 @@ BN_FN BN_NOINLINE void fq12_sq(Fq12& r, const Fq12& a) {
   fq6_add(r.c1, t, t);
 }
 
-// Granger-Scott cyclotomic squaring (valid on the cyclotomic subgroup)
-BN_FN BN_NOINLINE void fq4_sq_parts(Fq2& even, Fq2& odd, const Fq2& x,
-                                    const Fq2& y) {
-  // (x + y W)^2 = (x^2 + xi y^2) + 2xy W, from tmp = xy, s = (x+y)(x + xi y)
-  Fq2 tmp, s, u, v;
-  fq2_mul(tmp, x, y);
-  fq2_add(u, x, y);
-  fq2_mul_xi(v, y);
-  fq2_add(v, x, v);
-  fq2_mul(s, u, v);
-  fq2_sub(s, s, tmp);
-  fq2_mul_xi(u, tmp);
-  fq2_sub(even, s, u);
-  fq2_double(odd, tmp);
-}
-
-BN_FN BN_INLINE void three_minus_two(Fq2& r, const Fq2& t, const Fq2& x) {
-  Fq2 d;
-  fq2_sub(d, t, x);
-  fq2_double(d, d);
-  fq2_add(r, d, t);
-}
-
-BN_FN BN_INLINE void three_plus_two(Fq2& r, const Fq2& t, const Fq2& x) {
-  Fq2 d;
-  fq2_add(d, t, x);
-  fq2_double(d, d);
-  fq2_add(r, d, t);
-}
-
-BN_FN BN_NOINLINE void fq12_cyc_sq(Fq12& r, const Fq12& a) {
-  // r0, r4, r3 = a.c0; r2, r1, r5 = a.c1; pairs (r0,r1), (r2,r3), (r4,r5)
-  Fq2 t0, t1, t2, t3, t4, t5, x;
-  fq4_sq_parts(t0, t1, a.c0.c0, a.c1.c1);
-  fq4_sq_parts(t2, t3, a.c1.c0, a.c0.c2);
-  fq4_sq_parts(t4, t5, a.c0.c1, a.c1.c2);
-  Fq12 o;
-  three_minus_two(o.c0.c0, t0, a.c0.c0);
-  three_minus_two(o.c0.c1, t2, a.c0.c1);
-  three_minus_two(o.c0.c2, t4, a.c0.c2);
-  fq2_mul_xi(x, t5);
-  three_plus_two(o.c1.c0, x, a.c1.c0);
-  three_plus_two(o.c1.c1, t1, a.c1.c1);
-  three_plus_two(o.c1.c2, t3, a.c1.c2);
-  r = o;
-}
-
 // ---------------------------------------------------------------------------
 // sparse line fold and the G2 steps (pairing/miller.py:58-149)
 // ---------------------------------------------------------------------------
@@ -665,11 +619,11 @@ BN_FN BN_NOINLINE void add_step(ProjG2& out, Line& ln, const ProjG2& t,
 
 // ---------------------------------------------------------------------------
 // the fused bodies (pairing/final_exp.py, fields/limbs.py); fq12_sq,
-// fq12_cyc_sq, fq12_mul_line and the step ops above are bodies of their
-// own. The cooperative bodies (the four Miller digit bodies, expu_step,
-// fq12_mul and glv_dbl_add) are level schedules over the same functions
-// instead (fused.cu, coop_schedule.py), and el_pow_step_mul is fused.cu's
-// register-resident chain over cios_wide.
+// fq12_mul_line and the step ops above are bodies of their own. The
+// cooperative bodies (the four Miller digit bodies, expu_step, expu_sq2,
+// fq12_mul, fq12_cyc_sq and glv_dbl_add) are level schedules over the same
+// formulas instead (fused.cu, coop_schedule.py), and el_pow_step_mul is
+// fused.cu's register-resident chain over cios_wide.
 // ---------------------------------------------------------------------------
 
 // the window of the fused pow chain (fields/limbs.py:_POW_WINDOW)
@@ -680,13 +634,6 @@ BN_FN BN_INLINE void el_pow_step_sq(Fp& out, const Fp& acc) {
   Fp x = acc;
   for (int k = 0; k < kPowWindow; ++k) fp_mul(x, x, x);
   out = x;
-}
-
-// expu_sq2: acc^4 by two cyclotomic squarings
-BN_FN BN_INLINE void expu_sq2(Fq12& out, const Fq12& acc) {
-  Fq12 x;
-  fq12_cyc_sq(x, acc);
-  fq12_cyc_sq(out, x);
 }
 
 }  // namespace bn254

@@ -1,13 +1,14 @@
 """Level schedules of the lane-cooperative kernels of `fused.cu`.
 
-`miller_dbl_body`, `miller_add_body`, `expu_step`, `fq12_mul`,
-`miller_dbl_body2`, `miller_add_body2` and `glv_dbl_add` run as a group of
-G threads per lane (`fused.cu`, "Design"). Their bodies are traced here, Fp
-operation by Fp operation, from formulas that mirror `bn254_tower.cuh`'s
-functions line for line (`fq12_sq`, `dbl_step`, `add_step`,
-`fq12_mul_line`; `fq12_cyc_sq`, `fq6_mul`) and, for `fq12_mul`'s Karatsuba
-over Fq6, the second pair's constant line and the G1 doubling and complete
-addition, the plain bodies (`fields/tower.py:_fq12_mul_impl`,
+`miller_dbl_body`, `miller_add_body`, `expu_step`, `expu_sq2`, `fq12_mul`,
+`fq12_cyc_sq`, `miller_dbl_body2`, `miller_add_body2` and `glv_dbl_add` run
+as a group of G threads per lane (`fused.cu`, "Design"). Their bodies are
+traced here, Fp operation by Fp operation, from formulas that mirror
+`bn254_tower.cuh`'s functions line for line (`fq12_sq`, `dbl_step`,
+`add_step`, `fq12_mul_line`, `fq6_mul`) and, for `fq12_mul`'s Karatsuba
+over Fq6, the cyclotomic square, the second pair's constant line and the
+G1 doubling and complete addition, the plain bodies
+(`fields/tower.py:_fq12_mul_impl, _fq12_cyc_sq_impl`,
 `pairing/miller.py:_dbl_body2_impl`, `curve/jacobian.py:double, add`),
 and cut into *levels*: sets of operations that read only what earlier
 levels wrote. The group runs a level with thread g taking operations g,
@@ -220,6 +221,9 @@ class Tower:
         return self.fq2_add(self.fq2_double(self.fq2_add(t, x)), t)
 
     def fq12_cyc_sq(self, a):
+        """Granger-Scott: the three Fq4 squares of the pairs (c0.c0,
+        c1.c1), (c1.c0, c0.c2), (c0.c1, c1.c2), then 3t - 2r and 3t + 2r
+        (valid on the cyclotomic subgroup)."""
         (a00, a01, a02), (a10, a11, a12) = a
         t0, t1 = self.fq4_sq_parts(a00, a11)
         t2, t3 = self.fq4_sq_parts(a10, a02)
@@ -420,6 +424,22 @@ def trace_expu_step():
     return tr, _flat(tw.fq12_mul(tw.fq12_cyc_sq(tw.fq12_cyc_sq(acc)), m))
 
 
+def trace_expu_sq2():
+    """acc -> acc^4 by two cyclotomic squarings: 12 -> 12 Els."""
+    tr = Trace()
+    tw = Tower(tr)
+    acc = _fq12(iter([tr.load(i) for i in range(12)]))
+    return tr, _flat(tw.fq12_cyc_sq(tw.fq12_cyc_sq(acc)))
+
+
+def trace_fq12_cyc_sq():
+    """a -> a^2 by the cyclotomic formula: 12 -> 12 Els."""
+    tr = Trace()
+    tw = Tower(tr)
+    a = _fq12(iter([tr.load(i) for i in range(12)]))
+    return tr, _flat(tw.fq12_cyc_sq(a))
+
+
 def trace_glv_dbl_add():
     """(acc, sel) -> 2 acc + sel, G1 Jacobian points: 6 -> 3 Els."""
     tr = Trace()
@@ -439,6 +459,8 @@ BODIES = {
     "fq12_mul": (trace_fq12_mul, 54, False),
     "miller_add_body": (trace_miller_add_body, 80, False),
     "glv_dbl_add": (trace_glv_dbl_add, 30, True),
+    "expu_sq2": (trace_expu_sq2, 36, True),
+    "fq12_cyc_sq": (trace_fq12_cyc_sq, 18, True),
 }
 
 

@@ -32,38 +32,42 @@
 // for limb (chip_smoke.py and tests/test_torch_fused_host.py compare so).
 //
 // Design, the cooperative kernels (miller_dbl_body, miller_add_body,
-// expu_step, fq12_mul, miller_dbl_body2, miller_add_body2, glv_dbl_add): a
-// group of G threads per lane. Their bodies are level schedules
-// (kernels/coop_schedule.py, generated into coop_schedule.cuh): each level
-// is a set of independent Fp operations (a CIOS product, an input load,
-// one thread's chain of additions, or its chain of masked selects) that
-// read only what earlier levels wrote. Thread g of the group runs
-// operations g, g + G, ... of a level, then the group synchronises
-// (__syncwarp for G <= 32, __syncthreads for a 64-thread group). A lane's
-// values live in shared memory, one slot of 9 words (two 15-bit limbs
-// each) per Fp, reused once dead: 91, 86, 108, 108, 97, 92 and 20 slots
-// (3.3, 3.1, 3.9, 3.9, 3.5, 3.3 and 0.7 KB). The products of one product
-// depth share a level (4, 4, 3, 1, 5, 4 and 7 such levels, loads excluded;
-// fq12_mul's 54 products are one level), the leaf runs with its operands
-// in registers, and results agree with the plain bodies by canonical
-// value. The leaf is the schedule's (S::kWideLeaf): cios_wide for
-// glv_dbl_add, cios for the six others. glv_dbl_add (one Shamir step,
-// 2 acc + sel) is the plain body's dbl-2009-l, add-2007-bl and the doubling
-// of 2 acc that the plain complete add computes on every lane, 30 products
-// in 22 levels of 1-7 operations, then one SEL per output coordinate with
-// the plain body's four selects in its order. The Miller bodies keep the
-// plain bodies' order (the square of a doubling digit, the step, the line
-// fold, then the two-pair bodies' constant line), and the two-pair
-// bodies' constant triple (ca, cb, cc) is read like any other input El:
-// the wrapper's packing broadcasts it over the lanes. G comes from the lane
-// count and the card's SM count (kCoopRule below, kGlvRule for
-// glv_dbl_add): 64 for the one-lane final exponentiation and the narrow end
-// of the Fq12 product tree, 8 for 4,096 and 8,193 lanes, 2 for
-// glv_dbl_add's 16,384. What bounds them: at thousands of lanes the
-// instruction rate of the leaves; at one lane the latency of the levels,
-// most of them chains of additions whose carries run limb by limb;
-// glv_dbl_add, whose levels hold 1-7 operations, the latency of its 22
-// levels at ~8 warps a SM.
+// expu_step, fq12_mul, miller_dbl_body2, miller_add_body2, glv_dbl_add,
+// expu_sq2, fq12_cyc_sq): a group of G threads per lane. Their bodies are
+// level schedules (kernels/coop_schedule.py, generated into
+// coop_schedule.cuh): each level is a set of independent Fp operations (a
+// CIOS product, an input load, one thread's chain of additions, or its
+// chain of masked selects) that read only what earlier levels wrote.
+// Thread g of the group runs operations g, g + G, ... of a level, then the
+// group synchronises (__syncwarp for G <= 32, __syncthreads for a 64-thread
+// group). A lane's values live in shared memory, one slot of 9 words (two
+// 15-bit limbs each) per Fp, reused once dead: 91, 86, 108, 108, 97, 92,
+// 20, 42 and 42 slots (3.3, 3.1, 3.9, 3.9, 3.5, 3.3, 0.7, 1.5 and 1.5 KB).
+// The products of one product depth share a level (4, 4, 3, 1, 5, 4, 7, 2
+// and 1 such levels, loads excluded; fq12_mul's 54 products are one level,
+// each cyclotomic square's 18 another), the leaf runs with its operands in
+// registers, and results agree with the plain bodies by canonical value.
+// The leaf is the schedule's (S::kWideLeaf): cios_wide for glv_dbl_add,
+// expu_sq2 and fq12_cyc_sq, cios for the six others; BN254_WIDE_LEAF=0 or
+// 1, where defined, sets it for every schedule (kernel_times.py --leaf
+// builds so). expu_sq2 (acc^4) is two Granger-Scott squarings, 36
+// products in 19 levels; fq12_cyc_sq one, 18 in 10. glv_dbl_add (one
+// Shamir step, 2 acc + sel) is the plain body's dbl-2009-l, add-2007-bl
+// and the doubling of 2 acc that the plain complete add computes on every
+// lane, 30 products in 22 levels of 1-7 operations, then one SEL per
+// output coordinate with the plain body's four selects in its order. The
+// Miller bodies keep the plain bodies' order (the square of a doubling
+// digit, the step, the line fold, then the two-pair bodies' constant
+// line), and the two-pair bodies' constant triple (ca, cb, cc) is read
+// like any other input El: the wrapper's packing broadcasts it over the
+// lanes. G comes from the lane count and the card's SM count (kCoopRule
+// below, kGlvRule for glv_dbl_add): 64 for the one-lane final
+// exponentiation and the narrow end of the Fq12 product tree, 8 for 4,096
+// and 8,193 lanes, 2 for glv_dbl_add's 16,384. What bounds them: at
+// thousands of lanes the instruction rate of the leaves; at one lane the
+// latency of the levels, most of them chains of additions whose carries
+// run limb by limb; glv_dbl_add, whose levels hold 1-7 operations, the
+// latency of its 22 levels at ~8 warps a SM.
 //
 // Design, el_pow_step_mul (acc^8 m: two input loads, three squares and the
 // multiply, a strict chain of six products): one thread per lane, 64-thread
@@ -159,30 +163,12 @@ BN_FN BN_INLINE const Fp* els(const T& x) {
   return reinterpret_cast<const Fp*>(&x);
 }
 
-// inputs (acc) -> acc^4
-BN_FN BN_INLINE void lane_expu_sq2(const int64_t* in, int64_t* out,
-                                   int64_t n, int64_t e) {
-  Fq12 acc, o;
-  load_els(els(acc), 12, 0, in, n, e);
-  expu_sq2(o, acc);
-  store_els(out, 0, els(o), 12, n, e);
-}
-
 // inputs (a) -> a^2
 BN_FN BN_INLINE void lane_fq12_sq(const int64_t* in, int64_t* out,
                                   int64_t n, int64_t e) {
   Fq12 a, o;
   load_els(els(a), 12, 0, in, n, e);
   fq12_sq(o, a);
-  store_els(out, 0, els(o), 12, n, e);
-}
-
-// inputs (a) -> a^2 by the cyclotomic formula
-BN_FN BN_INLINE void lane_fq12_cyc_sq(const int64_t* in, int64_t* out,
-                                      int64_t n, int64_t e) {
-  Fq12 a, o;
-  load_els(els(a), 12, 0, in, n, e);
-  fq12_cyc_sq(o, a);
   store_els(out, 0, els(o), 12, n, e);
 }
 
@@ -332,9 +318,15 @@ constexpr int kSlotWords = 9;  // an Fp in a slot: two 15-bit limbs a word
 // 0.025 / 0.045 at 1 lane (G=64); at 4 lanes a SM G=32 0.035 / 0.056
 // against G=64's 0.033 / 0.054; at 32 G=8 0.090 / 0.108 (G=16 0.093 /
 // 0.123); at 63 G=8 0.197 / 0.198 against fq12_mul's G=16 0.183 and
-// miller_add_body's G=4 0.191. Bigger groups idle more threads in each
-// level's last round; smaller ones leave the SM's schedulers waiting on the
-// leaf's dependent carries.
+// miller_add_body's G=4 0.191. expu_sq2 and fq12_cyc_sq (two and one
+// cyclotomic squares over cios_wide, 18 products a product level) too,
+// every pick within 4 % of the best G where their paths run them (expu_sq2
+// / fq12_cyc_sq): at one lane, device time, G=64 0.0388 / 0.0227 against
+// G=32's 0.0381 / 0.0220; at 4,096 lanes G=8 0.0867 / 0.0512 (G=4 0.1013 /
+// 0.0578, G=16 0.1054 / 0.0607); at 8,193, where no path runs them, G=4
+// 0.136 / 0.080 beats G=8's 0.153 / 0.088. Bigger groups idle more
+// threads in each level's last round; smaller ones leave the SM's
+// schedulers waiting on the leaf's dependent carries.
 struct CoopRule {
   int64_t max_lanes_per_sm;
   int group;
@@ -507,7 +499,12 @@ BN_COOP void coop_op(int k, uint32_t* st, const int64_t* in, int64_t* out,
       slot_get(x, st, a);
       slot_get(y, st, b);
     }
-    if constexpr (S::kWideLeaf) {
+#ifdef BN254_WIDE_LEAF
+    constexpr bool wide = BN254_WIDE_LEAF;
+#else
+    constexpr bool wide = S::kWideLeaf;
+#endif
+    if constexpr (wide) {
       cios_wide(r.l, x, y);
     } else {
       cios(r.l, x, y);
@@ -761,9 +758,7 @@ constexpr int kHostSms = 132;  // the H100's
 
 #endif
 
-BN254_FUSED_KERNEL(expu_sq2)
 BN254_FUSED_KERNEL(fq12_sq)
-BN254_FUSED_KERNEL(fq12_cyc_sq)
 BN254_FUSED_KERNEL(el_pow_step_mul)
 BN254_FUSED_KERNEL(el_pow_step_sq)
 BN254_FUSED_KERNEL(fq12_mul_line)
@@ -780,3 +775,5 @@ BN254_COOP_KERNEL(fq12_mul, CoopFq12Mul, BN254_COOP_GROUPS, kCoopRule)
 BN254_COOP_KERNEL(miller_add_body, CoopMillerAddBody, BN254_COOP_GROUPS,
                   kCoopRule)
 BN254_COOP_KERNEL(glv_dbl_add, CoopGlvDblAdd, BN254_GLV_GROUPS, kGlvRule)
+BN254_COOP_KERNEL(expu_sq2, CoopExpuSq2, BN254_COOP_GROUPS, kCoopRule)
+BN254_COOP_KERNEL(fq12_cyc_sq, CoopFq12CycSq, BN254_COOP_GROUPS, kCoopRule)

@@ -248,7 +248,8 @@ _GROUPS = (4, 8, 16, 32, 64)
 INSTANCES = {**dict.fromkeys(("miller_dbl_body", "expu_step",
                               "miller_dbl_body2", "miller_add_body2",
                               "fq12_mul", "miller_add_body"), _GROUPS),
-             "glv_dbl_add": (1, 2, *_GROUPS)}
+             "glv_dbl_add": (1, 2, *_GROUPS),
+             **dict.fromkeys(("expu_sq2", "fq12_cyc_sq"), _GROUPS)}
 COOP = tuple(INSTANCES)
 COOP_INFO = ("blocks_per_sm", "smem_per_block", "lanes_per_block",
              "registers", "stack_bytes", "threads_per_block")

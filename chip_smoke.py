@@ -12,9 +12,9 @@ Phases, each of which exits non-zero on failure:
    source, started together; build seconds and ptxas registers, stack and
    spills per kernel; for each instantiation of the lane-cooperative
    kernels (`fused.INSTANCES`: G = 4 ... 64 of miller_dbl_body, expu_step,
-   miller_dbl_body2, miller_add_body2, fq12_mul and miller_add_body, G = 1
-   ... 64 of glv_dbl_add), resident blocks per SM, shared memory per block,
-   lanes per block, registers and stack
+   miller_dbl_body2, miller_add_body2, fq12_mul, miller_add_body, expu_sq2
+   and fq12_cyc_sq, G = 1 ... 64 of glv_dbl_add), resident blocks per SM,
+   shared memory per block, lanes per block, registers and stack
    (cudaOccupancyMaxActiveBlocksPerMultiprocessor and
    cudaFuncGetAttributes, through fused.cu's C exports), and the size each
    launcher's rule picks at the widths the paths run; the SASS instruction
@@ -40,7 +40,8 @@ Phases, each of which exits non-zero on failure:
      (acc, sel or both the identity, sel = 2acc, sel = -2acc) at the GLV
      ladder's width.
      Phase 6 adds every further lane count and input bound the paths
-     launched a kernel at.
+     launched a kernel at, and fails if a launch of phases 4 to 6 is left
+     unheld.
 4. The main path through the user entry points: `api.batch_sign` makes
    the signatures of `batch` distinct messages under `keys` keys (8 held
    against the host oracle), then `api.batch_verify(mode="adaptive")`
@@ -81,7 +82,8 @@ Phases, each of which exits non-zero on failure:
    key check exact. Then every fused kernel is held against its plain body,
    as in phase 3, at each further (lane count, input bounds) that the runs
    of phases 4 to 6 launched it at (recorded by wrapping `fused.fused_op`
-   and `fused._launch`).
+   and `fused._launch`); every (lane count, input bounds) a path launched
+   must have been held so.
 7. Times on a warm repeat (CUDA events), in both configurations: per stage
    (the weights stage also split into the GLV ladders and the signature
    tree-sum, the final exponentiation into its easy part, one exp_u, the
@@ -89,13 +91,16 @@ Phases, each of which exits non-zero on failure:
    same exact counts) and the montmul launches per verify; per kernel ms at
    its path's width beside its bound and its plain version, and the device
    busy share (profiler kernel time over wall time) of one miller_dbl_body
-   launch and of one whole exp_u; the independent tier's verifies/s and
-   its stages (hash, Miller, final exp) for pair2, the stacked form and the
-   stacked form with unroll_static_loops=False, in turns; the kernels the
+   launch and of one whole exp_u, the exp_u in both configurations in
+   turns (default, unroll_static_loops=False, twice each, so that the scan
+   form's exp_u stage is read against its own spread); the independent
+   tier's verifies/s and its stages (hash, Miller, final exp) for pair2,
+   the stacked form and the stacked form with unroll_static_loops=False, in
+   turns; the kernels the
    independent tier shares with the adaptive path at the independent run's
    widths and launch counts; ms per launch (50 back to back, the better of
    two passes over the sizes) of every instantiation of the lane-
-   cooperative kernels (the `coop_sweep` line): the six Miller, exp_u and
+   cooperative kernels (the `coop_sweep` line): the Miller, exp_u and
    Fq12 bodies at 1 lane, 2, 4, 8 and 15 lanes per SM, `independent` and
    batch + 1 lanes; glv_dbl_add at 1 lane, 2 lanes per SM, `independent`,
    batch + 1 and 2 x batch lanes; at one lane also each size's device time
@@ -344,7 +349,9 @@ def main() -> int:
     # the kernels over cios_wide, and over cios for comparison
     for line in sass_counts(nvcc, str(build._output("fused")), lambda fn: (
             fn.startswith(("el_pow_step_", "coop_kernel<CoopGlvDblAdd",
-                           "coop_kernel<CoopMillerDblBody, 8>")))):
+                           "coop_kernel<CoopMillerDblBody, 8>",
+                           "coop_kernel<CoopExpuSq2",
+                           "coop_kernel<CoopFq12CycSq")))):
         print(f"build: sass: {line}")
 
     # -- 3. kernel vs plain ----------------------------------------------------
@@ -838,6 +845,14 @@ def main() -> int:
                 compare(key, f"{n} lanes, inputs at the bounds a path "
                         f"launched it at (values < 2^{top}, limbs < "
                         f"{lmax})", body_inputs(key, n, bounds=bounds))
+    unheld = {k: sorted(n for n, _ in v - checked[k])
+              for k, v in run_launches.items() if v - checked[k]}
+    if unheld:
+        fail(f"launches never held against the plain bodies: {unheld}")
+    for key in ("expu_sq2", "fq12_cyc_sq"):
+        print(f"held: {key} at every (lane count, input bounds) the paths "
+              f"launched it at, lanes {lanes(run_launches)[key]}, "
+              f"{len(run_launches[key])} bound sets")
 
     # -- 7. times on a warm repeat ---------------------------------------------------
     def stage_times(tag, check_warm, **extra):
@@ -901,8 +916,8 @@ def main() -> int:
                             for k, v in stages.items()}))
         return stages, pts, f_cyc
 
-    stages, pts, f_cyc = stage_times("", check_counts, sign_s=sign_s,
-                                     cold_adaptive_s=cold_s)
+    _, pts, f_cyc = stage_times("", check_counts, sign_s=sign_s,
+                                cold_adaptive_s=cold_s)
     with no_unroll():
         stage_times(f", {nu}", lambda tag: check_scan_counts(tag, scan_want),
                     cold_adaptive_s=scan_cold_s)
@@ -917,12 +932,19 @@ def main() -> int:
         f0 = M._pin_fq12(T.fq12_one(px.batch_shape, dev))
         t_0 = M._pin_proj(M.ProjG2(qx, qy, T.fq2_one(px.batch_shape, dev)))
         xpp, ypp = M._pin_el(px), M._pin_el(py)
-        probes = {
-            "miller_dbl_body_launch": lambda: FK.fused_op(
-                M._dbl_body_impl, "miller_dbl_body", f0, t_0, xpp, ypp),
-            "exp_u": lambda: FE.exp_u(f_cyc),
-        }
-        for tag, fn in probes.items():
+
+        def exp_u_scan():
+            with no_unroll():
+                return FE.exp_u(f_cyc)
+
+        probes = [
+            ("miller_dbl_body_launch", lambda: FK.fused_op(
+                M._dbl_body_impl, "miller_dbl_body", f0, t_0, xpp, ypp)),
+            ("exp_u", lambda: FE.exp_u(f_cyc)),
+            ("exp_u_no_unroll", exp_u_scan), ("exp_u_no_unroll", exp_u_scan),
+            ("exp_u", lambda: FE.exp_u(f_cyc)),
+        ]
+        for tag, fn in probes:
             fn()
             torch.cuda.synchronize()
             t0_host = time.perf_counter()
@@ -938,11 +960,9 @@ def main() -> int:
                          for e in prof.key_averages())
             n_ops = sum(e.count for e in prof.key_averages()
                         if e.key.startswith("aten::"))
-            stages[f"{tag}_wall_ms"] = wall_ms
-            stages[f"{tag}_device_ms"] = dev_us / 1e3 if dev_us else None
-            stages[f"{tag}_busy_share"] = dev_us / 1e3 / wall_ms if dev_us else None
+            device_ms = dev_us / 1e3 if dev_us else None
             print(f"busy share, {tag}: wall {wall_ms:.3f} ms, device "
-                  f"{stages[f'{tag}_device_ms']} ms, {n_ops} aten ops (profiler)")
+                  f"{device_ms} ms, {n_ops} aten ops (profiler)")
 
     # the independent tier: stages and verifies/s of pair2 and the stacked
     # form (single-pair bodies), and of the stacked form with

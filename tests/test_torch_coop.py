@@ -1,6 +1,6 @@
 """The lane-cooperative kernels (`miller_dbl_body`, `expu_step`,
 `miller_dbl_body2`, `miller_add_body2`, `fq12_mul`, `miller_add_body`,
-`glv_dbl_add`) off the card.
+`glv_dbl_add`, `expu_sq2`, `fq12_cyc_sq`) off the card.
 
 Their level schedules (`kernels/coop_schedule.py`, generated into
 `coop_schedule.cuh`) are checked twice:
@@ -9,10 +9,10 @@ Their level schedules (`kernels/coop_schedule.py`, generated into
   products; `glv_dbl_add`'s masked selects as SEL chains), each level
   reading only slots that earlier levels wrote and writing no slot another
   op of the level reads; every product of the formula computed exactly
-  once (117, 90, 160, 123, 54, 80 and 30, plus one load per input El, no
-  two products of the same operands); every output written once, equal to
-  the plain body by value; the six older schedules' tables byte for byte
-  as they were before `glv_dbl_add` and the SEL kind joined;
+  once (117, 90, 160, 123, 54, 80, 30, 36 and 18, plus one load per input
+  El, no two products of the same operands); every output written once,
+  equal to the plain body by value; the seven older schedules' tables
+  byte for byte as they were measured on the card;
 * through the g++ build of `fused.cu` (`-DBN254_CHECK_BOUNDS`), whose host
   launchers run the same `coop_op` over each level with the group's
   threads g = 0..G-1 in turn: for every group size each kernel is built
@@ -20,7 +20,9 @@ Their level schedules (`kernels/coop_schedule.py`, generated into
   check, on pinned and boundary inputs (`utils/samples.bounded_limbs`);
   and with some arguments as unbatched (18,) Els that `fused.pack`
   broadcasts (the two-pair bodies' constant line triple, `fq12_mul`'s
-  second factor, `miller_add_body`'s G1 point).
+  second factor, `miller_add_body`'s G1 point); and the two cyclotomic
+  squaring kernels on easy-part outputs against the JAX package's generic
+  Fq12 square.
 """
 
 import ctypes
@@ -79,8 +81,8 @@ def test_header_is_current():
         "run python -m bn254_tpu_torch.kernels.coop_schedule")
 
 
-# sha256 of each older schedule's ops, chain steps and level starts, as
-# 16-bit little-endian words: the tables these kernels were measured with
+# sha256 of each schedule's ops, chain steps and level starts, as 16-bit
+# little-endian words: the tables these kernels were measured with
 TABLE_DIGESTS = {
     "miller_dbl_body":
         "cc950a6527d7db53090db8c5d3bd2aecadd6a149b13277d9cdbc94e4a51d684a",
@@ -94,6 +96,12 @@ TABLE_DIGESTS = {
         "6cbe0f443b366436a662d0d086a43c32977843e96277436fbb064db8249b0db3",
     "miller_add_body":
         "e43c56853bf90427553c2c5b429104f7cf758d570535c8efc7672299c1491f2a",
+    "glv_dbl_add":
+        "7539ad2894447fc22ebee2acea6985393744f851f277676068bf4107f4af752b",
+    "expu_sq2":
+        "b2586c04fc3033fcc2392dd6d4d9d10c1da1adf99c7304f6160498dab36a4b46",
+    "fq12_cyc_sq":
+        "0e5982406bdc12b0bbb9e85dcaa154088c697676b92b086fe1cc3b04311eac58",
 }
 
 
@@ -288,3 +296,43 @@ def test_group_rule(host_lib):
         out = np.zeros((FK.arity(key)[1], NLIMBS, 1), dtype=np.int64)
         assert host(host_lib, key)(packed.ctypes.data, out.ctypes.data, 1,
                                    size) == -1
+
+
+def test_host_cyclotomic_squares_match_jax_generic_square(host_lib):
+    """`fq12_cyc_sq` and `expu_sq2` at every G on easy-part outputs,
+    f^((p^6-1)(p^2+1)), where the Granger-Scott formula holds: equal by
+    value to the JAX package's generic `fq12_sq` applied once and twice."""
+    from bn254_tpu.fields import limbs as JL
+    from bn254_tpu.fields import tower as JT
+
+    rng = np.random.default_rng(31)
+
+    def mont():
+        return JL.to_mont(JL.from_ints(
+            [int.from_bytes(rng.bytes(32), "little") % P for _ in range(N)]))
+
+    f = JT.Fq12(*[JT.Fq6(*[JT.Fq2(mont(), mont()) for _ in range(3)])
+                  for _ in range(2)])
+    g = JT.fq12_mul(JT.fq12_conj(f), JT.fq12_inv(f))
+    e = JT.fq12_retag(JT.fq12_mul(JT.fq12_frob(g, 2), g))
+    sq = JT.fq12_sq(e)
+    wants = {"fq12_cyc_sq": sq, "expu_sq2": JT.fq12_sq(sq)}
+
+    def els(x):  # tree order: c0.c0.c0, c0.c0.c1, ..., c1.c2.c1
+        return [el for six in x for fq2 in six for el in fq2]
+
+    leaves = els(e)
+    assert all(x.vmax <= FK.IN_BOUNDS[0] and x.lmax <= FK.IN_BOUNDS[1]
+               for x in leaves)
+    packed = np.ascontiguousarray(
+        np.stack([np.asarray(x.arr).astype(np.int64) for x in leaves]))
+    for key, want in wants.items():
+        want_vals = [[int(v) % P for v in JL.to_ints(x.arr)]
+                     for x in els(want)]
+        assert want_vals[0] != [int(v) % P for v in JL.to_ints(leaves[0].arr)]
+        for group in FK.INSTANCES[key]:
+            got = np.zeros((12, NLIMBS, N), dtype=np.int64)
+            assert host(host_lib, key)(packed.ctypes.data, got.ctypes.data, N,
+                                       group) == 0
+            assert [[int(v) for v in L.to_ints(x)] for x in got] == \
+                want_vals, (key, group)
