@@ -12,8 +12,8 @@
 // chain, no conditional subtraction. Its contract: operand limbs < 2^16 and
 // a * b + R * p < 2^538 (fields/limbs.py:mont_mul asserts it on the host).
 // `cios_wide` computes the same limbs with 64-bit columns (one IMAD.WIDE a
-// multiply-add); glv_dbl_add, expu_sq2, fq12_cyc_sq and el_pow_step_mul
-// run it, the rest cios.
+// multiply-add); glv_dbl_add, expu_sq2, fq12_cyc_sq, fq12_mul_line and the
+// two pow windows run it, the rest cios.
 //
 // Reduction schedule of the Fp/Fq2/.../Fq12 functions (their own, not the
 // plain bodies' lazy one): every Fp they return is fully carried (limbs
@@ -492,48 +492,8 @@ BN_FN BN_NOINLINE void fq12_sq(Fq12& r, const Fq12& a) {
 }
 
 // ---------------------------------------------------------------------------
-// sparse line fold and the G2 steps (pairing/miller.py:58-149)
+// the G2 steps (pairing/miller.py:125-188)
 // ---------------------------------------------------------------------------
-
-// g * (s0 + s1 v): 5 Fq2 products
-BN_FN BN_NOINLINE void fq6_mul_by_01(Fq6& r, const Fq6& g, const Fq2& s0,
-                                     const Fq2& s1) {
-  Fq2 t00, t11, u, g2s0, g2s1, x, y;
-  fq2_mul(t00, g.c0, s0);
-  fq2_mul(t11, g.c1, s1);
-  fq2_add(x, g.c0, g.c1);
-  fq2_add(y, s0, s1);
-  fq2_mul(u, x, y);
-  fq2_mul(g2s0, g.c2, s0);
-  fq2_mul(g2s1, g.c2, s1);
-  fq2_mul_xi(x, g2s1);
-  fq2_add(r.c0, t00, x);
-  fq2_sub(u, u, t00);
-  fq2_sub(r.c1, u, t11);
-  fq2_add(r.c2, g2s0, t11);
-}
-
-BN_FN BN_NOINLINE void fq6_mul_by_0(Fq6& r, const Fq6& g, const Fq2& s0) {
-  fq2_mul(r.c0, g.c0, s0);
-  fq2_mul(r.c1, g.c1, s0);
-  fq2_mul(r.c2, g.c2, s0);
-}
-
-// f * (A + B w + C v w)
-BN_FN BN_NOINLINE void fq12_mul_line(Fq12& r, const Fq12& f, const Fq2& a,
-                                     const Fq2& b, const Fq2& c) {
-  Fq6 t0, t1, s;
-  Fq2 ab;
-  fq6_mul_by_0(t0, f.c0, a);
-  fq6_mul_by_01(t1, f.c1, b, c);
-  fq6_add(s, f.c0, f.c1);
-  fq2_add(ab, a, b);
-  fq6_mul_by_01(s, s, ab, c);  // t2
-  fq6_sub(s, s, t0);
-  fq6_sub(r.c1, s, t1);
-  fq6_mul_by_v(t1, t1);
-  fq6_add(r.c0, t0, t1);
-}
 
 struct ProjG2 {
   Fq2 x, y, z;
@@ -618,22 +578,16 @@ BN_FN BN_NOINLINE void add_step(ProjG2& out, Line& ln, const ProjG2& t,
 }
 
 // ---------------------------------------------------------------------------
-// the fused bodies (pairing/final_exp.py, fields/limbs.py); fq12_sq,
-// fq12_mul_line and the step ops above are bodies of their own. The
-// cooperative bodies (the four Miller digit bodies, expu_step, expu_sq2,
-// fq12_mul, fq12_cyc_sq and glv_dbl_add) are level schedules over the same
-// formulas instead (fused.cu, coop_schedule.py), and el_pow_step_mul is
-// fused.cu's register-resident chain over cios_wide.
+// fq12_sq and the G2 steps above are the one-thread bodies of fused.cu's
+// fq12_sq, g2_dbl_step and g2_add_step. The cooperative bodies (the four
+// Miller digit bodies, expu_step, expu_sq2, fq12_mul, fq12_cyc_sq,
+// fq12_mul_line and glv_dbl_add) are level schedules over the same
+// formulas instead (fused.cu, coop_schedule.py), and the two pow windows
+// (el_pow_step_mul, el_pow_step_sq) fused.cu's register-resident chain
+// over cios_wide.
 // ---------------------------------------------------------------------------
 
 // the window of the fused pow chain (fields/limbs.py:_POW_WINDOW)
 constexpr int kPowWindow = 3;
-
-// el_pow_step_sq: acc^(2^3)
-BN_FN BN_INLINE void el_pow_step_sq(Fp& out, const Fp& acc) {
-  Fp x = acc;
-  for (int k = 0; k < kPowWindow; ++k) fp_mul(x, x, x);
-  out = x;
-}
 
 }  // namespace bn254

@@ -1,15 +1,16 @@
 """Level schedules of the lane-cooperative kernels of `fused.cu`.
 
 `miller_dbl_body`, `miller_add_body`, `expu_step`, `expu_sq2`, `fq12_mul`,
-`fq12_cyc_sq`, `miller_dbl_body2`, `miller_add_body2` and `glv_dbl_add` run
-as a group of G threads per lane (`fused.cu`, "Design"). Their bodies are
-traced here, Fp operation by Fp operation, from formulas that mirror
-`bn254_tower.cuh`'s functions line for line (`fq12_sq`, `dbl_step`,
-`add_step`, `fq12_mul_line`, `fq6_mul`) and, for `fq12_mul`'s Karatsuba
-over Fq6, the cyclotomic square, the second pair's constant line and the
-G1 doubling and complete addition, the plain bodies
-(`fields/tower.py:_fq12_mul_impl, _fq12_cyc_sq_impl`,
-`pairing/miller.py:_dbl_body2_impl`, `curve/jacobian.py:double, add`),
+`fq12_cyc_sq`, `miller_dbl_body2`, `miller_add_body2`, `glv_dbl_add` and
+`fq12_mul_line` run as a group of G threads per lane (`fused.cu`,
+"Design"). Their bodies are traced here, Fp operation by Fp operation,
+from formulas that mirror `bn254_tower.cuh`'s functions line for line
+(`fq12_sq`, `dbl_step`, `add_step`, `fq6_mul`) and, for `fq12_mul`'s
+Karatsuba over Fq6, the sparse line fold, the cyclotomic square, the
+second pair's constant line and the G1 doubling and complete addition, the
+plain bodies (`fields/tower.py:_fq12_mul_impl, _fq12_cyc_sq_impl`,
+`pairing/miller.py:_fq12_mul_line_impl, _dbl_body2_impl`,
+`curve/jacobian.py:double, add`),
 and cut into *levels*: sets of operations that read only what earlier
 levels wrote. The group runs a level with thread g taking operations g,
 g + G, ... and synchronises between levels.
@@ -234,6 +235,8 @@ class Tower:
                  self.three_plus_two(t1, a11), self.three_plus_two(t3, a12)))
 
     def fq6_mul_by_01(self, g, s0, s1):
+        """g * (s0 + s1 v) (pairing/miller.py:_fq6_mul_by_01): its five
+        Fq2 products in its order, xi on g2 s1."""
         m, add, sub = self.fq2_mul, self.fq2_add, self.fq2_sub
         t00, t11 = m(g[0], s0), m(g[1], s1)
         u = m(add(g[0], g[1]), add(s0, s1))
@@ -440,6 +443,17 @@ def trace_fq12_cyc_sq():
     return tr, _flat(tw.fq12_cyc_sq(a))
 
 
+def trace_fq12_mul_line():
+    """(f, a, b, c) -> f * (a + b w + c v w), the sparse line fold: 18 -> 12
+    Els."""
+    tr = Trace()
+    tw = Tower(tr)
+    it = iter([tr.load(i) for i in range(18)])
+    f = _fq12(it)
+    a, b, c = ((next(it), next(it)) for _ in range(3))
+    return tr, _flat(tw.fq12_mul_line(f, a, b, c))
+
+
 def trace_glv_dbl_add():
     """(acc, sel) -> 2 acc + sel, G1 Jacobian points: 6 -> 3 Els."""
     tr = Trace()
@@ -461,6 +475,7 @@ BODIES = {
     "glv_dbl_add": (trace_glv_dbl_add, 30, True),
     "expu_sq2": (trace_expu_sq2, 36, True),
     "fq12_cyc_sq": (trace_fq12_cyc_sq, 18, True),
+    "fq12_mul_line": (trace_fq12_mul_line, 39, True),
 }
 
 

@@ -33,67 +33,73 @@
 //
 // Design, the cooperative kernels (miller_dbl_body, miller_add_body,
 // expu_step, fq12_mul, miller_dbl_body2, miller_add_body2, glv_dbl_add,
-// expu_sq2, fq12_cyc_sq): a group of G threads per lane. Their bodies are
-// level schedules (kernels/coop_schedule.py, generated into
-// coop_schedule.cuh): each level is a set of independent Fp operations (a
-// CIOS product, an input load, one thread's chain of additions, or its
-// chain of masked selects) that read only what earlier levels wrote.
-// Thread g of the group runs operations g, g + G, ... of a level, then the
-// group synchronises (__syncwarp for G <= 32, __syncthreads for a 64-thread
-// group). A lane's values live in shared memory, one slot of 9 words (two
-// 15-bit limbs each) per Fp, reused once dead: 91, 86, 108, 108, 97, 92,
-// 20, 42 and 42 slots (3.3, 3.1, 3.9, 3.9, 3.5, 3.3, 0.7, 1.5 and 1.5 KB).
-// The products of one product depth share a level (4, 4, 3, 1, 5, 4, 7, 2
-// and 1 such levels, loads excluded; fq12_mul's 54 products are one level,
-// each cyclotomic square's 18 another), the leaf runs with its operands in
+// expu_sq2, fq12_cyc_sq, fq12_mul_line): a group of G threads per lane.
+// Their bodies are level schedules (kernels/coop_schedule.py, generated
+// into coop_schedule.cuh): each level is a set of independent Fp
+// operations (a CIOS product, an input load, one thread's chain of
+// additions, or its chain of masked selects) that read only what earlier
+// levels wrote. Thread g of the group runs operations g, g + G, ... of a
+// level, then the group synchronises (__syncwarp for G <= 32,
+// __syncthreads for a 64-thread group). A lane's values live in shared
+// memory, one slot of 9 words (two 15-bit limbs each) per Fp, reused once
+// dead: 91, 86, 108, 108, 97, 92, 20, 42, 42 and 63 slots (3.3, 3.1, 3.9,
+// 3.9, 3.5, 3.3, 0.7, 1.5, 1.5 and 2.3 KB). The products of one product
+// depth share a level (4, 4, 3, 1, 5, 4, 7, 2, 1 and 1 such levels, loads
+// excluded; fq12_mul's 54 products are one level, each cyclotomic square's
+// 18 another, the line fold's 39 one), the leaf runs with its operands in
 // registers, and results agree with the plain bodies by canonical value.
 // The leaf is the schedule's (S::kWideLeaf): cios_wide for glv_dbl_add,
-// expu_sq2 and fq12_cyc_sq, cios for the six others; BN254_WIDE_LEAF=0 or
-// 1, where defined, sets it for every schedule (kernel_times.py --leaf
-// builds so). expu_sq2 (acc^4) is two Granger-Scott squarings, 36
-// products in 19 levels; fq12_cyc_sq one, 18 in 10. glv_dbl_add (one
-// Shamir step, 2 acc + sel) is the plain body's dbl-2009-l, add-2007-bl
-// and the doubling of 2 acc that the plain complete add computes on every
-// lane, 30 products in 22 levels of 1-7 operations, then one SEL per
-// output coordinate with the plain body's four selects in its order. The
-// Miller bodies keep the plain bodies' order (the square of a doubling
-// digit, the step, the line fold, then the two-pair bodies' constant
-// line), and the two-pair bodies' constant triple (ca, cb, cc) is read
-// like any other input El: the wrapper's packing broadcasts it over the
-// lanes. G comes from the lane count and the card's SM count (kCoopRule
-// below, kGlvRule for glv_dbl_add): 64 for the one-lane final
-// exponentiation and the narrow end of the Fq12 product tree, 8 for 4,096
-// and 8,193 lanes, 2 for glv_dbl_add's 16,384. What bounds them: at
-// thousands of lanes the instruction rate of the leaves; at one lane the
-// latency of the levels, most of them chains of additions whose carries
-// run limb by limb; glv_dbl_add, whose levels hold 1-7 operations, the
-// latency of its 22 levels at ~8 warps a SM.
+// expu_sq2, fq12_cyc_sq and fq12_mul_line, cios for the six others;
+// BN254_WIDE_LEAF=0 or 1, where defined, sets it for every schedule
+// (kernel_times.py --leaf builds so). expu_sq2 (acc^4) is two
+// Granger-Scott squarings, 36 products in 19 levels; fq12_cyc_sq one, 18 in
+// 10. fq12_mul_line (f times the sparse line a + b w + c v w) is the plain
+// body's Karatsuba over Fq6: fq6_mul_by_0's 9 products and two
+// fq6_mul_by_01 of 15, 39 products in 8 levels (18 loads, then additions,
+// the 39 products, then the Karatsuba's additions). glv_dbl_add (one Shamir
+// step, 2 acc + sel) is the plain body's dbl-2009-l, add-2007-bl and the
+// doubling of 2 acc that the plain complete add computes on every lane, 30
+// products in 22 levels of 1-7 operations, then one SEL per output
+// coordinate with the plain body's four selects in its order. The Miller
+// bodies keep the plain bodies' order (the square of a doubling digit, the
+// step, the line fold, then the two-pair bodies' constant line), and the
+// two-pair bodies' constant triple (ca, cb, cc) is read like any other
+// input El: the wrapper's packing broadcasts it over the lanes. G comes
+// from the lane count and the card's SM count (kCoopRule below, kGlvRule
+// for glv_dbl_add): 64 for the one-lane final exponentiation and the narrow
+// end of the Fq12 product tree, 8 for 4,096 and 8,193 lanes, 2 for
+// glv_dbl_add's 16,384. What bounds them: at thousands of lanes the
+// instruction rate of the leaves; at one lane the latency of the levels,
+// most of them chains of additions whose carries run limb by limb;
+// glv_dbl_add, whose levels hold 1-7 operations, the latency of its 22
+// levels at ~8 warps a SM.
 //
-// Design, el_pow_step_mul (acc^8 m: two input loads, three squares and the
-// multiply, a strict chain of six products): one thread per lane, 64-thread
+// Design, the pow windows el_pow_step_mul (acc^8 m) and el_pow_step_sq
+// (acc^8), one body (lane_el_pow_step<kMul>): the input loads, three
+// squares and, for a nonzero window, the multiply, a strict chain of six
+// products (four with the multiply off). One thread per lane, 64-thread
 // blocks, every value in registers, each product cios_wide on the previous
 // one's result. No two of its Fp operations are independent, so a level
 // schedule would hold one product a level; sharing each product's columns
 // between T threads of a lane (a shuffle for a_i, for m and for the column
-// shift each CIOS round) was measured slower at every width, T = 1 / 2 / 4
-// / 8 in ms per launch (NVIDIA H100 80GB HBM3, 700.00 W): one lane, device
-// time, 0.0113 / 0.0158 / 0.0139 / 0.0148; 8,193 lanes 0.0158 / 0.0177 /
-// 0.0187 / 0.0231; 32,768 0.0209 / 0.0387 / 0.0547 / 0.0775; 65,536 0.0385
-// / 0.0745 / 0.0982 / 0.1480. What bounds it: at 65,536 lanes the
-// instruction rate of its leaves, at one lane the latency of the six
-// products' chain.
+// shift each CIOS round) was measured slower at every width for
+// el_pow_step_mul, T = 1 / 2 / 4 / 8 in ms per launch (NVIDIA H100 80GB
+// HBM3, 700.00 W): one lane, device time, 0.0113 / 0.0158 / 0.0139 /
+// 0.0148; 8,193 lanes 0.0158 / 0.0177 / 0.0187 / 0.0231; 32,768 0.0209 /
+// 0.0387 / 0.0547 / 0.0775; 65,536 0.0385 / 0.0745 / 0.0982 / 0.1480. What
+// bounds them: at 65,536 lanes the instruction rate of their leaves, at one
+// lane the latency of the chain.
 //
-// Design, the other kernels: one thread per lane, 64-thread blocks (8,193
-// Miller lanes fill 129 blocks, about one per SM, for the scan form's step
-// ops). The step ops (g2_dbl_step, g2_add_step, fq12_mul_line) are device
+// Design, the other kernels (fq12_sq, g2_dbl_step, g2_add_step): one
+// thread per lane, 64-thread blocks (8,193 Miller lanes fill 129 blocks,
+// about one per SM, for the scan form's ops). Their bodies are device
 // functions of bn254_tower.cuh, one launch each, so the scan form pays a
 // launch and an HBM round trip of f, T and the line per step. The Fq12
-// accumulator and the temporaries live in local memory; the Fq2-level
-// functions and the leaf are not inlined, which keeps the nvcc build in
-// seconds. The limb layout makes each lane's limb loads coalesced across a
-// warp.
+// and Fq2 temporaries live in local memory; the Fq2-level functions and
+// the leaf are not inlined, which keeps the nvcc build in seconds. The
+// limb layout makes each lane's limb loads coalesced across a warp.
 //
-// What bounds them: per lane a body does 3-42 leaf multiplies of 648
+// What bounds them: per lane a body does 36-42 leaf multiplies of 648
 // 32-bit multiply-adds each and moves (n_in + n_out) x 18 x 8 bytes, so
 // the INT32 rate is the nominal bound; at one thread per lane, latency of
 // the dependent leaf chain is what these kernels actually pay.
@@ -186,48 +192,29 @@ BN_FN BN_INLINE void fp_mul_wide(Fp& r, const Fp& a, const Fp& b) {
   r = o;
 }
 
-// inputs (acc, m) -> acc^8 m: the two loads (REDC by R mod p, as fp_load),
-// three squares and the multiply, one chain of six cios_wide products
-BN_FN BN_INLINE void lane_el_pow_step_mul(const int64_t* in, int64_t* out,
-                                          int64_t n, int64_t e) {
-  Fp one, v[2];
+// inputs (acc, m) -> acc^8 m (kMul) or (acc) -> acc^8: the loads (REDC by
+// R mod p, as fp_load), three squares and, for a nonzero window, the
+// multiply, one chain of cios_wide products (six, or four with kMul off)
+template <bool kMul>
+BN_FN BN_INLINE void lane_el_pow_step(const int64_t* in, int64_t* out,
+                                      int64_t n, int64_t e) {
+  constexpr int kIn = kMul ? 2 : 1;
+  Fp one, v[kIn];
 #pragma unroll
   for (int i = 0; i < kLimbs; ++i) one.l[i] = rmodp_limb(i);
 #pragma unroll
-  for (int k = 0; k < 2; ++k) {
+  for (int k = 0; k < kIn; ++k) {
     Fp raw;
     load_raw(raw, k, in, n, e);
     fp_mul_wide(v[k], raw, one);
   }
-#pragma unroll 1  // one copy of the square: 140 registers, not 200
+#pragma unroll 1  // one copy of the square: 140 (146 without m), not 200
   for (int w = 0; w < kPowWindow; ++w) fp_mul_wide(v[0], v[0], v[0]);
-  fp_mul_wide(v[0], v[0], v[1]);
+  if constexpr (kMul) fp_mul_wide(v[0], v[0], v[kIn - 1]);
   uint32_t c[kLimbs];
   fp_canon_limbs(c, v[0].l);
 #pragma unroll
   for (int i = 0; i < kLimbs; ++i) out[i * n + e] = c[i];
-}
-
-// inputs (acc) -> acc^8
-BN_FN BN_INLINE void lane_el_pow_step_sq(const int64_t* in, int64_t* out,
-                                         int64_t n, int64_t e) {
-  Fp acc, o;
-  load_els(&acc, 1, 0, in, n, e);
-  el_pow_step_sq(o, acc);
-  store_els(out, 0, &o, 1, n, e);
-}
-
-// inputs (f, a, b, c) -> f * (a + b w + c v w)
-BN_FN BN_INLINE void lane_fq12_mul_line(const int64_t* in, int64_t* out,
-                                        int64_t n, int64_t e) {
-  Fq12 f, o;
-  Fq2 a, b, c;
-  load_els(els(f), 12, 0, in, n, e);
-  load_els(els(a), 2, 12, in, n, e);
-  load_els(els(b), 2, 14, in, n, e);
-  load_els(els(c), 2, 16, in, n, e);
-  fq12_mul_line(o, f, a, b, c);
-  store_els(out, 0, els(o), 12, n, e);
 }
 
 // inputs (t, xp, yp) -> (2t, its tangent line (a, b, c))
@@ -324,9 +311,16 @@ constexpr int kSlotWords = 9;  // an Fp in a slot: two 15-bit limbs a word
 // / fq12_cyc_sq): at one lane, device time, G=64 0.0388 / 0.0227 against
 // G=32's 0.0381 / 0.0220; at 4,096 lanes G=8 0.0867 / 0.0512 (G=4 0.1013 /
 // 0.0578, G=16 0.1054 / 0.0607); at 8,193, where no path runs them, G=4
-// 0.136 / 0.080 beats G=8's 0.153 / 0.088. Bigger groups idle more
-// threads in each level's last round; smaller ones leave the SM's
-// schedulers waiting on the leaf's dependent carries.
+// 0.136 / 0.080 beats G=8's 0.153 / 0.088. fq12_mul_line (39 products a
+// level over cios_wide) too, every pick within 3 % of the best G where its
+// paths run it, G = 4 / 8 / 16 / 32 / 64: at 65 and 128 lanes (the tampered
+// 64-tuple fallback and key check) G=64 0.0262 / 0.0216 against G=32's
+// 0.0257 / 0.0232 (one lane, device time: 0.0184 against 0.0207); at 8,192
+// and 8,193 G=8 0.1048 / 0.1049 against G=4's 0.1018 / 0.1030 (G=16
+// 0.1294 / 0.1299); at 264 lanes, where no path runs it, G=32 0.0256 beat
+// G=64's 0.0280 in one of two turns. Bigger groups idle more threads in
+// each level's last round; smaller ones leave the SM's schedulers waiting
+// on the leaf's dependent carries.
 struct CoopRule {
   int64_t max_lanes_per_sm;
   int group;
@@ -538,14 +532,15 @@ namespace {
 constexpr int kThreads = 64;
 }
 
-// bn254_<key>(in, out, n, stream): launch on `stream`, return cudaGetLastError
-#define BN254_FUSED_KERNEL(key)                                               \
+// bn254_<key>(in, out, n, stream): lane body `lane` launched on `stream`;
+// returns cudaGetLastError
+#define BN254_FUSED_KERNEL(key, lane)                                         \
   __global__ void __launch_bounds__(kThreads)                                 \
       key##_kernel(const int64_t* __restrict__ in, int64_t* __restrict__ out, \
                    int64_t n) {                                               \
     const int64_t e =                                                         \
         static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;          \
-    if (e < n) bn254::lane_##key(in, out, n, e);                              \
+    if (e < n) bn254::lane(in, out, n, e);                                    \
   }                                                                           \
   extern "C" int bn254_##key(const int64_t* in, int64_t* out, int64_t n,      \
                              void* stream) {                                  \
@@ -679,16 +674,16 @@ inline int coop_sms() {
 
 #else
 
-// bn254_host_<key>(in, out, n): the lane bodies in a loop on the host;
+// bn254_host_<key>(in, out, n): lane body `lane` in a loop on the host;
 // returns the number of failed bound checks (0 without BN254_CHECK_BOUNDS)
 #ifndef BN254_CHECK_BOUNDS
 static int bn254_bound_faults = 0;
 #endif
-#define BN254_FUSED_KERNEL(key)                                              \
+#define BN254_FUSED_KERNEL(key, lane)                                        \
   extern "C" int bn254_host_##key(const int64_t* in, int64_t* out,           \
                                   int64_t n) {                               \
     bn254_bound_faults = 0;                                                  \
-    for (int64_t e = 0; e < n; ++e) bn254::lane_##key(in, out, n, e);        \
+    for (int64_t e = 0; e < n; ++e) bn254::lane(in, out, n, e);              \
     return bn254_bound_faults;                                               \
   }
 
@@ -758,12 +753,11 @@ constexpr int kHostSms = 132;  // the H100's
 
 #endif
 
-BN254_FUSED_KERNEL(fq12_sq)
-BN254_FUSED_KERNEL(el_pow_step_mul)
-BN254_FUSED_KERNEL(el_pow_step_sq)
-BN254_FUSED_KERNEL(fq12_mul_line)
-BN254_FUSED_KERNEL(g2_dbl_step)
-BN254_FUSED_KERNEL(g2_add_step)
+BN254_FUSED_KERNEL(fq12_sq, lane_fq12_sq)
+BN254_FUSED_KERNEL(el_pow_step_mul, lane_el_pow_step<true>)
+BN254_FUSED_KERNEL(el_pow_step_sq, lane_el_pow_step<false>)
+BN254_FUSED_KERNEL(g2_dbl_step, lane_g2_dbl_step)
+BN254_FUSED_KERNEL(g2_add_step, lane_g2_add_step)
 BN254_COOP_KERNEL(miller_dbl_body, CoopMillerDblBody, BN254_COOP_GROUPS,
                   kCoopRule)
 BN254_COOP_KERNEL(expu_step, CoopExpuStep, BN254_COOP_GROUPS, kCoopRule)
@@ -777,3 +771,5 @@ BN254_COOP_KERNEL(miller_add_body, CoopMillerAddBody, BN254_COOP_GROUPS,
 BN254_COOP_KERNEL(glv_dbl_add, CoopGlvDblAdd, BN254_GLV_GROUPS, kGlvRule)
 BN254_COOP_KERNEL(expu_sq2, CoopExpuSq2, BN254_COOP_GROUPS, kCoopRule)
 BN254_COOP_KERNEL(fq12_cyc_sq, CoopFq12CycSq, BN254_COOP_GROUPS, kCoopRule)
+BN254_COOP_KERNEL(fq12_mul_line, CoopFq12MulLine, BN254_COOP_GROUPS,
+                  kCoopRule)

@@ -12,14 +12,16 @@ Phases, each of which exits non-zero on failure:
    source, started together; build seconds and ptxas registers, stack and
    spills per kernel; for each instantiation of the lane-cooperative
    kernels (`fused.INSTANCES`: G = 4 ... 64 of miller_dbl_body, expu_step,
-   miller_dbl_body2, miller_add_body2, fq12_mul, miller_add_body, expu_sq2
-   and fq12_cyc_sq, G = 1 ... 64 of glv_dbl_add), resident blocks per SM,
+   miller_dbl_body2, miller_add_body2, fq12_mul, miller_add_body, expu_sq2,
+   fq12_cyc_sq and fq12_mul_line, G = 1 ... 64 of glv_dbl_add), resident
+   blocks per SM,
    shared memory per block, lanes per block, registers and stack
    (cudaOccupancyMaxActiveBlocksPerMultiprocessor and
    cudaFuncGetAttributes, through fused.cu's C exports), and the size each
    launcher's rule picks at the widths the paths run; the SASS instruction
    counts (cuobjdump, where the toolkit has it) of the kernels over the two
-   leaves, cios and cios_wide.
+   leaves, cios and cios_wide (the pow windows and the cooperative
+   schedules over cios_wide, miller_dbl_body's G=8 over cios).
 3. Kernel vs plain.
    - montmul against its plain torch version, bit for bit, on random limbs
      at the main path's widest shape (54 x batch lanes), a lane count that is
@@ -83,7 +85,8 @@ Phases, each of which exits non-zero on failure:
    as in phase 3, at each further (lane count, input bounds) that the runs
    of phases 4 to 6 launched it at (recorded by wrapping `fused.fused_op`
    and `fused._launch`); every (lane count, input bounds) a path launched
-   must have been held so.
+   must have been held so; the widths and bound sets held are printed for
+   the kernels over cios_wide.
 7. Times on a warm repeat (CUDA events), in both configurations: per stage
    (the weights stage also split into the GLV ladders and the signature
    tree-sum, the final exponentiation into its easy part, one exp_u, the
@@ -102,7 +105,9 @@ Phases, each of which exits non-zero on failure:
    two passes over the sizes) of every instantiation of the lane-
    cooperative kernels (the `coop_sweep` line): the Miller, exp_u and
    Fq12 bodies at 1 lane, 2, 4, 8 and 15 lanes per SM, `independent` and
-   batch + 1 lanes; glv_dbl_add at 1 lane, 2 lanes per SM, `independent`,
+   batch + 1 lanes, fq12_mul_line also at every lane count the phase 6
+   runs launched it at (2 x `independent`, the tampered batch's fused check
+   and stacked fallback); glv_dbl_add at 1 lane, 2 lanes per SM, `independent`,
    batch + 1 and 2 x batch lanes; at one lane also each size's device time
    under torch.profiler.
 
@@ -345,13 +350,14 @@ def main() -> int:
         print(f"build: {key}'s rule on {sms} SMs picks "
               f"{list(FK.coop_groups(key))}: " + json.dumps(
                   {n: FK.coop_group(key, n, sms)
-                   for n in (1, NI, B + 1, 2 * B, NI * K, B * K)}))
+                   for n in (1, NI, 2 * NI, B + 1, 2 * B, NI * K, B * K)}))
     # the kernels over cios_wide, and over cios for comparison
     for line in sass_counts(nvcc, str(build._output("fused")), lambda fn: (
             fn.startswith(("el_pow_step_", "coop_kernel<CoopGlvDblAdd",
                            "coop_kernel<CoopMillerDblBody, 8>",
                            "coop_kernel<CoopExpuSq2",
-                           "coop_kernel<CoopFq12CycSq")))):
+                           "coop_kernel<CoopFq12CycSq",
+                           "coop_kernel<CoopFq12MulLine")))):
         print(f"build: sass: {line}")
 
     # -- 3. kernel vs plain ----------------------------------------------------
@@ -752,6 +758,7 @@ def main() -> int:
                  f"{json.dumps(want)} and some montmul")
         return got
 
+    scan_widths = {}  # the (lanes, bounds) of the launches of this phase
     pin_leaves = [0]  # the leaf multiplies launched by the Miller loop's pins
 
     @contextlib.contextmanager
@@ -773,7 +780,8 @@ def main() -> int:
     nu = "unroll_static_loops=False"
     with no_unroll():
         reset_counts()
-        with launches_recorded(run_launches), pin_leaves_counted():
+        with launches_recorded(run_launches, scan_widths), \
+                pin_leaves_counted():
             t0 = time.perf_counter()
             ok = api.batch_verify(msgs, sigs, pks, mode="adaptive")
             torch.cuda.synchronize()
@@ -794,7 +802,7 @@ def main() -> int:
               "swapped")
 
         reset_counts()
-        with launches_recorded(run_launches):
+        with launches_recorded(run_launches, scan_widths):
             ok64 = api.batch_verify(msgs[:small], tampered, pks[:small],
                                     mode="adaptive")
         if ok64.tolist() != [i != bad_i for i in range(small)]:
@@ -810,7 +818,7 @@ def main() -> int:
 
         scan_ind = {}
         reset_counts()
-        with launches_recorded(scan_ind, run_launches):
+        with launches_recorded(scan_ind, run_launches, scan_widths):
             ok_t = api.batch_verify(msgs_i, tampered_i, pks_i,
                                     mode="independent")
         check_scan_counts(f"independent run, {nu}", SCAN_MILLER_LAUNCHES)
@@ -825,7 +833,7 @@ def main() -> int:
               + json.dumps(lanes(scan_ind)))
 
         reset_counts()
-        with launches_recorded(run_launches):
+        with launches_recorded(run_launches, scan_widths):
             ok_pk = api.batch_check_public_keys(pk2s, pk1s)
         check_scan_counts(f"batch_check_public_keys, {nu}",
                           SCAN_MILLER_LAUNCHES)
@@ -849,7 +857,8 @@ def main() -> int:
               for k, v in run_launches.items() if v - checked[k]}
     if unheld:
         fail(f"launches never held against the plain bodies: {unheld}")
-    for key in ("expu_sq2", "fq12_cyc_sq"):
+    for key in ("expu_sq2", "fq12_cyc_sq", "fq12_mul_line",
+                "el_pow_step_mul", "el_pow_step_sq"):
         print(f"held: {key} at every (lane count, input bounds) the paths "
               f"launched it at, lanes {lanes(run_launches)[key]}, "
               f"{len(run_launches[key])} bound sets")
@@ -1011,15 +1020,18 @@ def main() -> int:
                   [{k: round(v, 4) for k, v in r.items()} for r in runs]))
 
     # the lane-cooperative kernels: ms per launch of every instantiation
-    # at the widths of its rule's steps and of its paths: the six Miller,
-    # exp_u and Fq12 bodies at 1 lane, 2, 4, 8 and 15 lanes per SM, the
-    # independent tier's and the Miller rows' widths; the GLV step at 1
+    # at the widths of its rule's steps and of its paths: the Miller, exp_u
+    # and Fq12 bodies at 1 lane, 2, 4, 8 and 15 lanes per SM, the
+    # independent tier's and the Miller rows' widths, the line fold also at
+    # the widths the runs with unroll_static_loops=False launched it at;
+    # the GLV step at 1
     # lane, 2 lanes per SM, the independent tier's, the Miller rows' and
     # the ladder's widths; the better of two passes over the sizes, and at
     # one lane each size's device time under torch.profiler
     sweep_widths = {**dict.fromkeys(FK.COOP, (1, 2 * sms, 4 * sms, 8 * sms,
                                               15 * sms, NI, B + 1)),
                     "glv_dbl_add": (1, 2 * sms, NI, B + 1, 2 * B)}
+    sweep_widths["fq12_mul_line"] += tuple(lanes(scan_widths)["fq12_mul_line"])
     coop_sweep = []
     with torch.inference_mode():
         for key, widths in sweep_widths.items():
@@ -1134,7 +1146,8 @@ def main() -> int:
             if key in SCAN_MILLER_LAUNCHES:
                 kernels.append(kernel_row(key, WIDTHS[key],
                                           "adaptive_no_unroll",
-                                          scan_launches[key], {}))
+                                          scan_launches[key],
+                                          lanes(scan_widths)))
                 continue
             kernels.append(kernel_row(key, WIDTHS[key], "adaptive",
                                       main_launches[key], lanes(main_widths)))

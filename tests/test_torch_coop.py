@@ -1,6 +1,6 @@
 """The lane-cooperative kernels (`miller_dbl_body`, `expu_step`,
 `miller_dbl_body2`, `miller_add_body2`, `fq12_mul`, `miller_add_body`,
-`glv_dbl_add`, `expu_sq2`, `fq12_cyc_sq`) off the card.
+`glv_dbl_add`, `expu_sq2`, `fq12_cyc_sq`, `fq12_mul_line`) off the card.
 
 Their level schedules (`kernels/coop_schedule.py`, generated into
 `coop_schedule.cuh`) are checked twice:
@@ -9,10 +9,10 @@ Their level schedules (`kernels/coop_schedule.py`, generated into
   products; `glv_dbl_add`'s masked selects as SEL chains), each level
   reading only slots that earlier levels wrote and writing no slot another
   op of the level reads; every product of the formula computed exactly
-  once (117, 90, 160, 123, 54, 80, 30, 36 and 18, plus one load per input
-  El, no two products of the same operands); every output written once,
-  equal to the plain body by value; the seven older schedules' tables
-  byte for byte as they were measured on the card;
+  once (117, 90, 160, 123, 54, 80, 30, 36, 18 and 39, plus one load per
+  input El, no two products of the same operands); every output written
+  once, equal to the plain body by value; each schedule's tables byte for
+  byte as they were measured on the card;
 * through the g++ build of `fused.cu` (`-DBN254_CHECK_BOUNDS`), whose host
   launchers run the same `coop_op` over each level with the group's
   threads g = 0..G-1 in turn: for every group size each kernel is built
@@ -20,9 +20,10 @@ Their level schedules (`kernels/coop_schedule.py`, generated into
   check, on pinned and boundary inputs (`utils/samples.bounded_limbs`);
   and with some arguments as unbatched (18,) Els that `fused.pack`
   broadcasts (the two-pair bodies' constant line triple, `fq12_mul`'s
-  second factor, `miller_add_body`'s G1 point); and the two cyclotomic
+  second factor, `miller_add_body`'s G1 point); the two cyclotomic
   squaring kernels on easy-part outputs against the JAX package's generic
-  Fq12 square.
+  Fq12 square; and the sparse line fold against the JAX package's
+  `_fq12_mul_line_impl`.
 """
 
 import ctypes
@@ -102,6 +103,8 @@ TABLE_DIGESTS = {
         "b2586c04fc3033fcc2392dd6d4d9d10c1da1adf99c7304f6160498dab36a4b46",
     "fq12_cyc_sq":
         "0e5982406bdc12b0bbb9e85dcaa154088c697676b92b086fe1cc3b04311eac58",
+    "fq12_mul_line":
+        "0323622c01d793e9a0821bbf7ee2f07288e6989d2fa7c467c9207ac59a20016e",
 }
 
 
@@ -336,3 +339,32 @@ def test_host_cyclotomic_squares_match_jax_generic_square(host_lib):
                                        group) == 0
             assert [[int(v) for v in L.to_ints(x)] for x in got] == \
                 want_vals, (key, group)
+
+
+def test_host_line_fold_matches_jax(host_lib):
+    """`fq12_mul_line` at every G against the JAX package's
+    `_fq12_mul_line_impl` on the same numpy inputs at the pins, by value."""
+    from bn254_tpu.fields import limbs as JL
+    from bn254_tpu.fields import tower as JT
+    from bn254_tpu.pairing import miller as JM
+
+    import jax.numpy as jnp
+
+    packed = inputs("fq12_mul_line", PINNED, 37)
+    els = iter([JL.El(jnp.asarray(x.astype(np.uint32)), *PINNED)
+                for x in packed])
+
+    def fq2():
+        return JT.Fq2(next(els), next(els))
+
+    f = JT.Fq12(*[JT.Fq6(fq2(), fq2(), fq2()) for _ in range(2)])
+    want = JM._fq12_mul_line_impl(f, fq2(), fq2(), fq2())
+    want_vals = [[int(v) % P for v in JL.to_ints(x.arr)]
+                 for six in want for pair in six for x in pair]
+    for group in FK.INSTANCES["fq12_mul_line"]:
+        got = np.zeros((12, NLIMBS, N), dtype=np.int64)
+        assert host(host_lib, "fq12_mul_line")(
+            np.ascontiguousarray(packed).ctypes.data, got.ctypes.data, N,
+            group) == 0
+        assert [[int(v) for v in L.to_ints(x)] for x in got] == \
+            want_vals, group

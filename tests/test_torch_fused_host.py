@@ -9,9 +9,10 @@ Each body is held against the port's plain body (what CPU tensors run) on 5
 lanes, boundary lanes included: by canonical value, and every output within
 the bounds the plain body declares; the two-pair Miller bodies also with
 their constant line triple unbatched; `glv_dbl_add`'s edge lanes at every
-group size G and `el_pow_step_mul` on lazy inputs. The two leaves, `cios` and `cios_wide`, are held bit
-for bit against `montmul_plain` and each other. This is the only run of the
-kernels' arithmetic off the card.
+group size G, the two pow windows on lazy inputs and `el_pow_step_sq`
+against the JAX package's `_pow_step_sq`. The two leaves, `cios` and
+`cios_wide`, are held bit for bit against `montmul_plain` and each other.
+This is the only run of the kernels' arithmetic off the card.
 """
 
 import ctypes
@@ -168,15 +169,38 @@ def test_host_glv_step_edge_cases(host_lib):
         assert z[0] == sel_z[0]  # acc at infinity: the sum is sel
 
 
-@pytest.mark.parametrize("bounds", [PINNED, (1 << 262, 1 << 20)],
-                         ids=["pins", "lazy"])
-def test_host_pow_step_mul(host_lib, bounds):
-    """el_pow_step_mul's chain of cios_wide products against
-    `_pow_step_mul`, at the pins and on lazy inputs (values < 2^262, limbs
+LAZY = (1 << 262, 1 << 20)
+
+
+@pytest.mark.parametrize("key, bounds", [
+    pytest.param("el_pow_step_mul", PINNED, id="pins"),
+    pytest.param("el_pow_step_mul", LAZY, id="lazy"),
+    pytest.param("el_pow_step_sq", PINNED, id="sq-pins"),
+    pytest.param("el_pow_step_sq", LAZY, id="sq-lazy")])
+def test_host_pow_step_mul(host_lib, key, bounds):
+    """The pow windows' one chain of cios_wide products (el_pow_step_mul,
+    and el_pow_step_sq with the multiply off) against `_pow_step_mul` and
+    `_pow_step_sq`, at the pins and on lazy inputs (values < 2^262, limbs
     < 2^20, carried by the load)."""
     rng = np.random.default_rng(61)
-    x = np.stack([SM.bounded_limbs(rng, *bounds, N) for _ in range(2)])
-    check_against_plain(host_lib, "el_pow_step_mul", x, bounds)
+    x = np.stack([SM.bounded_limbs(rng, *bounds, N)
+                  for _ in range(FK.arity(key)[0])])
+    check_against_plain(host_lib, key, x, bounds)
+
+
+def test_host_pow_step_sq_matches_jax(host_lib):
+    """el_pow_step_sq against the JAX package's `_pow_step_sq` on the same
+    numpy inputs at the pins, by value."""
+    import jax.numpy as jnp
+    from bn254_tpu.fields import limbs as JL
+
+    x = SM.bounded_limbs(np.random.default_rng(67), *PINNED, N)
+    want = JL._pow_step_sq(JL.El(jnp.asarray(x.astype(np.uint32)), *PINNED))
+    got = np.zeros((1, NLIMBS, N), dtype=np.int64)
+    assert host_fn(host_lib, "el_pow_step_sq")(
+        np.ascontiguousarray(x).ctypes.data, got.ctypes.data, N) == 0
+    assert [int(v) for v in L.to_ints(got[0])] == \
+        [int(v) % P for v in JL.to_ints(want.arr)]
 
 
 def leaf_operands(kind, rng, n=64):
