@@ -12,10 +12,10 @@
 // chain, no conditional subtraction. Its contract: operand limbs < 2^16 and
 // a * b + R * p < 2^538 (fields/limbs.py:mont_mul asserts it on the host).
 // `cios_wide` computes the same limbs with 64-bit columns (one IMAD.WIDE a
-// multiply-add); glv_dbl_add, expu_sq2, fq12_cyc_sq, fq12_mul_line and the
-// two pow windows run it, the rest cios.
+// multiply-add); glv_dbl_add, expu_sq2, fq12_cyc_sq, fq12_mul_line, fq12_sq,
+// g2_dbl_step and the two pow windows run it, the rest cios.
 //
-// Reduction schedule of the Fp/Fq2/.../Fq12 functions (their own, not the
+// Reduction schedule of the Fp and Fq2 functions (their own, not the
 // plain bodies' lazy one): every Fp they return is fully carried (limbs
 // < 2^15) and below 2p. Then every CIOS operand meets the contract
 // ((2p)^2 + R p < 2^538), the REDC of two such values is again below 2p
@@ -329,19 +329,6 @@ BN_FN BN_INLINE void fp_neg(Fp& r, const Fp& a) {
   fp_sub(r, z, a);
 }
 
-// a * k for the small constants of the formulas (k in 3, 4, 8, 9)
-BN_FN BN_NOINLINE void fp_mul_small(Fp& r, const Fp& a, int k) {
-  Fp x2, x4;
-  fp_add(x2, a, a);
-  if (k == 3) { fp_add(r, x2, a); return; }
-  fp_add(x4, x2, x2);
-  if (k == 4) { r = x4; return; }
-  Fp x8;
-  fp_add(x8, x4, x4);
-  if (k == 8) { r = x8; return; }
-  fp_add(r, x8, a);  // k == 9
-}
-
 // ---------------------------------------------------------------------------
 // Fq2 (fields/tower.py:163-217)
 // ---------------------------------------------------------------------------
@@ -366,11 +353,6 @@ BN_FN BN_INLINE void fq2_neg(Fq2& r, const Fq2& a) {
 }
 
 BN_FN BN_INLINE void fq2_double(Fq2& r, const Fq2& a) { fq2_add(r, a, a); }
-
-BN_FN BN_INLINE void fq2_mul_small(Fq2& r, const Fq2& a, int k) {
-  fp_mul_small(r.c0, a.c0, k);
-  fp_mul_small(r.c1, a.c1, k);
-}
 
 // Karatsuba: 3 leaves
 BN_FN BN_NOINLINE void fq2_mul(Fq2& r, const Fq2& a, const Fq2& b) {
@@ -400,97 +382,6 @@ BN_FN BN_NOINLINE void fq2_mul_fp(Fq2& r, const Fq2& a, const Fp& s) {
   fp_mul(r.c1, a.c1, s);
 }
 
-// xi = 9 + i: (9 c0 - c1, c0 + 9 c1)
-BN_FN BN_NOINLINE void fq2_mul_xi(Fq2& r, const Fq2& a) {
-  Fp n0, n1;
-  fp_mul_small(n0, a.c0, 9);
-  fp_mul_small(n1, a.c1, 9);
-  fp_add(n1, a.c0, n1);
-  fp_sub(r.c0, n0, a.c1);
-  r.c1 = n1;
-}
-
-// ---------------------------------------------------------------------------
-// Fq6 (fields/tower.py:247-282)
-// ---------------------------------------------------------------------------
-
-struct Fq6 {
-  Fq2 c0, c1, c2;
-};
-
-BN_FN BN_INLINE void fq6_add(Fq6& r, const Fq6& a, const Fq6& b) {
-  fq2_add(r.c0, a.c0, b.c0);
-  fq2_add(r.c1, a.c1, b.c1);
-  fq2_add(r.c2, a.c2, b.c2);
-}
-
-BN_FN BN_INLINE void fq6_sub(Fq6& r, const Fq6& a, const Fq6& b) {
-  fq2_sub(r.c0, a.c0, b.c0);
-  fq2_sub(r.c1, a.c1, b.c1);
-  fq2_sub(r.c2, a.c2, b.c2);
-}
-
-BN_FN BN_INLINE void fq6_mul_by_v(Fq6& r, const Fq6& a) {
-  Fq2 x;
-  fq2_mul_xi(x, a.c2);
-  r.c2 = a.c1;
-  r.c1 = a.c0;
-  r.c0 = x;
-}
-
-// the host oracle's interpolation identity: 6 Fq2 products
-BN_FN BN_NOINLINE void fq6_mul(Fq6& r, const Fq6& a, const Fq6& b) {
-  Fq2 t0, t1, t2, u0, u1, u2, x, y;
-  fq2_mul(t0, a.c0, b.c0);
-  fq2_mul(t1, a.c1, b.c1);
-  fq2_mul(t2, a.c2, b.c2);
-  fq2_add(x, a.c1, a.c2);
-  fq2_add(y, b.c1, b.c2);
-  fq2_mul(u0, x, y);
-  fq2_add(x, a.c0, a.c1);
-  fq2_add(y, b.c0, b.c1);
-  fq2_mul(u1, x, y);
-  fq2_add(x, a.c0, a.c2);
-  fq2_add(y, b.c0, b.c2);
-  fq2_mul(u2, x, y);
-  // c0 = t0 + xi (u0 - t1 - t2)
-  fq2_sub(x, u0, t1);
-  fq2_sub(x, x, t2);
-  fq2_mul_xi(x, x);
-  fq2_add(r.c0, t0, x);
-  // c1 = (u1 - t0 - t1) + xi t2
-  fq2_sub(x, u1, t0);
-  fq2_sub(x, x, t1);
-  fq2_mul_xi(y, t2);
-  fq2_add(r.c1, x, y);
-  // c2 = (u2 - t0 - t2) + t1
-  fq2_sub(x, u2, t0);
-  fq2_sub(x, x, t2);
-  fq2_add(r.c2, x, t1);
-}
-
-// ---------------------------------------------------------------------------
-// Fq12 (fields/tower.py:316-389)
-// ---------------------------------------------------------------------------
-
-struct Fq12 {
-  Fq6 c0, c1;
-};
-
-// complex squaring: t = c0 c1; c0' = (c0+c1)(c0 + v c1) - t - v t; c1' = 2t
-BN_FN BN_NOINLINE void fq12_sq(Fq12& r, const Fq12& a) {
-  Fq6 t, u, x, y;
-  fq6_mul(t, a.c0, a.c1);
-  fq6_add(x, a.c0, a.c1);
-  fq6_mul_by_v(y, a.c1);
-  fq6_add(y, a.c0, y);
-  fq6_mul(u, x, y);
-  fq6_sub(u, u, t);
-  fq6_mul_by_v(x, t);
-  fq6_sub(r.c0, u, x);
-  fq6_add(r.c1, t, t);
-}
-
 // ---------------------------------------------------------------------------
 // the G2 steps (pairing/miller.py:125-188)
 // ---------------------------------------------------------------------------
@@ -502,47 +393,6 @@ struct ProjG2 {
 struct Line {
   Fq2 a, b, c;
 };
-
-// tangent-line doubling, line scaled by 2YZ^2
-BN_FN BN_NOINLINE void dbl_step(ProjG2& out, Line& ln, const ProjG2& t,
-                                const Fp& xp, const Fp& yp) {
-  Fq2 xx, yy, xy, yz, x3, yyz, xyz, xxz, yzz, nine_x3, u, v;
-  fq2_sq(xx, t.x);
-  fq2_sq(yy, t.y);
-  fq2_mul(xy, t.x, t.y);
-  fq2_mul(yz, t.y, t.z);
-  fq2_mul(x3, xx, t.x);
-  fq2_mul(yyz, yy, t.z);
-  fq2_mul(xyz, xy, t.z);
-  fq2_mul(xxz, xx, t.z);
-  fq2_mul(yzz, yz, t.z);
-  // 2T = (2XYZ(9X^3-8Y^2Z) : 9X^3(4Y^2Z-3X^3) - 8(Y^2Z)^2 : 8(YZ)^3)
-  fq2_mul_small(u, x3, 8);
-  fq2_add(nine_x3, u, x3);
-  fq2_mul_small(v, yyz, 8);
-  fq2_sub(u, nine_x3, v);
-  fq2_mul(u, xyz, u);
-  fq2_double(out.x, u);
-  fq2_mul_small(u, yyz, 4);
-  fq2_mul_small(v, x3, 3);
-  fq2_sub(u, u, v);
-  fq2_mul(u, nine_x3, u);
-  fq2_sq(v, yyz);
-  fq2_mul_small(v, v, 8);
-  fq2_sub(out.y, u, v);
-  fq2_sq(u, yz);
-  fq2_mul(u, u, yz);
-  fq2_mul_small(out.z, u, 8);
-  // line: A = -2YZ^2 yP ; B = 3X^2 Z xP ; C = 2Y^2 Z - 3X^3
-  fq2_double(u, yzz);
-  fq2_neg(u, u);
-  fq2_mul_fp(ln.a, u, yp);
-  fq2_mul_small(u, xxz, 3);
-  fq2_mul_fp(ln.b, u, xp);
-  fq2_double(u, yyz);
-  fq2_mul_small(v, x3, 3);
-  fq2_sub(ln.c, u, v);
-}
 
 // chord-line mixed addition T + Q (Q affine), line scaled by lam
 BN_FN BN_NOINLINE void add_step(ProjG2& out, Line& ln, const ProjG2& t,
@@ -578,13 +428,12 @@ BN_FN BN_NOINLINE void add_step(ProjG2& out, Line& ln, const ProjG2& t,
 }
 
 // ---------------------------------------------------------------------------
-// fq12_sq and the G2 steps above are the one-thread bodies of fused.cu's
-// fq12_sq, g2_dbl_step and g2_add_step. The cooperative bodies (the four
-// Miller digit bodies, expu_step, expu_sq2, fq12_mul, fq12_cyc_sq,
-// fq12_mul_line and glv_dbl_add) are level schedules over the same
-// formulas instead (fused.cu, coop_schedule.py), and the two pow windows
-// (el_pow_step_mul, el_pow_step_sq) fused.cu's register-resident chain
-// over cios_wide.
+// add_step above is the one-thread body of fused.cu's g2_add_step. The
+// cooperative bodies (the four Miller digit bodies, expu_step, expu_sq2,
+// fq12_mul, fq12_sq, fq12_cyc_sq, fq12_mul_line, g2_dbl_step and
+// glv_dbl_add) are level schedules over the same formulas instead (fused.cu,
+// coop_schedule.py), and the two pow windows (el_pow_step_mul,
+// el_pow_step_sq) fused.cu's register-resident chain over cios_wide.
 // ---------------------------------------------------------------------------
 
 // the window of the fused pow chain (fields/limbs.py:_POW_WINDOW)

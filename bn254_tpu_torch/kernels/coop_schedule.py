@@ -1,16 +1,14 @@
 """Level schedules of the lane-cooperative kernels of `fused.cu`.
 
 `miller_dbl_body`, `miller_add_body`, `expu_step`, `expu_sq2`, `fq12_mul`,
-`fq12_cyc_sq`, `miller_dbl_body2`, `miller_add_body2`, `glv_dbl_add` and
-`fq12_mul_line` run as a group of G threads per lane (`fused.cu`,
-"Design"). Their bodies are traced here, Fp operation by Fp operation,
-from formulas that mirror `bn254_tower.cuh`'s functions line for line
-(`fq12_sq`, `dbl_step`, `add_step`, `fq6_mul`) and, for `fq12_mul`'s
-Karatsuba over Fq6, the sparse line fold, the cyclotomic square, the
-second pair's constant line and the G1 doubling and complete addition, the
-plain bodies (`fields/tower.py:_fq12_mul_impl, _fq12_cyc_sq_impl`,
-`pairing/miller.py:_fq12_mul_line_impl, _dbl_body2_impl`,
-`curve/jacobian.py:double, add`),
+`fq12_cyc_sq`, `miller_dbl_body2`, `miller_add_body2`, `glv_dbl_add`,
+`fq12_mul_line`, `fq12_sq` and `g2_dbl_step` run as a group of G threads
+per lane (`fused.cu`, "Design"). Their bodies are traced here, Fp
+operation by Fp operation, from formulas that mirror `bn254_tower.cuh`'s
+functions line for line (`add_step` and the Fq2 layer) and the plain
+bodies (`fields/tower.py:fq6_mul, _fq12_mul_impl, _fq12_sq_impl,
+_fq12_cyc_sq_impl`, `pairing/miller.py:_dbl_step_impl,
+_fq12_mul_line_impl, _dbl_body2_impl`, `curve/jacobian.py:double, add`),
 and cut into *levels*: sets of operations that read only what earlier
 levels wrote. The group runs a level with thread g taking operations g,
 g + G, ... and synchronises between levels.
@@ -115,7 +113,8 @@ class Trace:
         return self._node("sel", *steps)
 
 
-# -- the formulas of bn254_tower.cuh, over (c0, c1) / (c0, c1, c2) tuples ----
+# -- the formulas of bn254_tower.cuh and the plain bodies, over (c0, c1) /
+# (c0, c1, c2) tuples
 
 
 class Tower:
@@ -454,6 +453,24 @@ def trace_fq12_mul_line():
     return tr, _flat(tw.fq12_mul_line(f, a, b, c))
 
 
+def trace_fq12_sq():
+    """a -> a^2 by the complex squaring over Fq6: 12 -> 12 Els."""
+    tr = Trace()
+    tw = Tower(tr)
+    a = _fq12(iter([tr.load(i) for i in range(12)]))
+    return tr, _flat(tw.fq12_sq(a))
+
+
+def trace_g2_dbl_step():
+    """(t, xp, yp) -> (2t, its tangent line (a, b, c)): 8 -> 12 Els."""
+    tr = Trace()
+    tw = Tower(tr)
+    it = iter([tr.load(i) for i in range(8)])
+    t = tuple((next(it), next(it)) for _ in range(3))
+    xp, yp = next(it), next(it)
+    return tr, _flat(tw.dbl_step(t, xp, yp))
+
+
 def trace_glv_dbl_add():
     """(acc, sel) -> 2 acc + sel, G1 Jacobian points: 6 -> 3 Els."""
     tr = Trace()
@@ -476,6 +493,8 @@ BODIES = {
     "expu_sq2": (trace_expu_sq2, 36, True),
     "fq12_cyc_sq": (trace_fq12_cyc_sq, 18, True),
     "fq12_mul_line": (trace_fq12_mul_line, 39, True),
+    "fq12_sq": (trace_fq12_sq, 36, True),
+    "g2_dbl_step": (trace_g2_dbl_step, 42, True),
 }
 
 

@@ -13,9 +13,8 @@ Phases, each of which exits non-zero on failure:
    spills per kernel; for each instantiation of the lane-cooperative
    kernels (`fused.INSTANCES`: G = 4 ... 64 of miller_dbl_body, expu_step,
    miller_dbl_body2, miller_add_body2, fq12_mul, miller_add_body, expu_sq2,
-   fq12_cyc_sq and fq12_mul_line, G = 1 ... 64 of glv_dbl_add), resident
-   blocks per SM,
-   shared memory per block, lanes per block, registers and stack
+   fq12_cyc_sq, fq12_mul_line, fq12_sq and g2_dbl_step, G = 1 ... 64 of
+   glv_dbl_add), resident blocks per SM, shared memory per block, lanes per block, registers and stack
    (cudaOccupancyMaxActiveBlocksPerMultiprocessor and
    cudaFuncGetAttributes, through fused.cu's C exports), and the size each
    launcher's rule picks at the widths the paths run; the SASS instruction
@@ -37,8 +36,8 @@ Phases, each of which exits non-zero on failure:
      block, and an unbatched (18,) operand; the two-pair Miller bodies also
      with their constant line triple (ca, cb, cc) unbatched in its real
      place, between batched operands. The kernels with several threads per
-     lane are held so at every size they are built for, besides the path's
-     own launch; glv_dbl_add also on the complete addition's edge lanes
+     lane (all but the pow windows and g2_add_step) are held so at every
+     size they are built for, besides the path's own launch; glv_dbl_add also on the complete addition's edge lanes
      (acc, sel or both the identity, sel = 2acc, sel = -2acc) at the GLV
      ladder's width.
      Phase 6 adds every further lane count and input bound the paths
@@ -86,7 +85,8 @@ Phases, each of which exits non-zero on failure:
    of phases 4 to 6 launched it at (recorded by wrapping `fused.fused_op`
    and `fused._launch`); every (lane count, input bounds) a path launched
    must have been held so; the widths and bound sets held are printed for
-   the kernels over cios_wide.
+   the kernels over cios_wide but glv_dbl_add (expu_sq2, fq12_cyc_sq,
+   fq12_mul_line, fq12_sq, g2_dbl_step and the two pow windows).
 7. Times on a warm repeat (CUDA events), in both configurations: per stage
    (the weights stage also split into the GLV ladders and the signature
    tree-sum, the final exponentiation into its easy part, one exp_u, the
@@ -104,10 +104,11 @@ Phases, each of which exits non-zero on failure:
    widths and launch counts; ms per launch (50 back to back, the better of
    two passes over the sizes) of every instantiation of the lane-
    cooperative kernels (the `coop_sweep` line): the Miller, exp_u and
-   Fq12 bodies at 1 lane, 2, 4, 8 and 15 lanes per SM, `independent` and
-   batch + 1 lanes, fq12_mul_line also at every lane count the phase 6
-   runs launched it at (2 x `independent`, the tampered batch's fused check
-   and stacked fallback); glv_dbl_add at 1 lane, 2 lanes per SM, `independent`,
+   Fq12 bodies and the G2 doubling step at 1 lane, 2, 4, 8 and 15 lanes per
+   SM, `independent` and batch + 1 lanes, the three scan-loop kernels
+   (fq12_mul_line, fq12_sq, g2_dbl_step) also at every lane count the phase
+   6 runs launched them at (2 x `independent`, the tampered batch's fused
+   check and stacked fallback); glv_dbl_add at 1 lane, 2 lanes per SM, `independent`,
    batch + 1 and 2 x batch lanes; at one lane also each size's device time
    under torch.profiler.
 
@@ -357,7 +358,9 @@ def main() -> int:
                            "coop_kernel<CoopMillerDblBody, 8>",
                            "coop_kernel<CoopExpuSq2",
                            "coop_kernel<CoopFq12CycSq",
-                           "coop_kernel<CoopFq12MulLine")))):
+                           "coop_kernel<CoopFq12MulLine",
+                           "coop_kernel<CoopFq12Sq",
+                           "coop_kernel<CoopG2DblStep")))):
         print(f"build: sass: {line}")
 
     # -- 3. kernel vs plain ----------------------------------------------------
@@ -857,8 +860,8 @@ def main() -> int:
               for k, v in run_launches.items() if v - checked[k]}
     if unheld:
         fail(f"launches never held against the plain bodies: {unheld}")
-    for key in ("expu_sq2", "fq12_cyc_sq", "fq12_mul_line",
-                "el_pow_step_mul", "el_pow_step_sq"):
+    for key in ("expu_sq2", "fq12_cyc_sq", "fq12_mul_line", "fq12_sq",
+                "g2_dbl_step", "el_pow_step_mul", "el_pow_step_sq"):
         print(f"held: {key} at every (lane count, input bounds) the paths "
               f"launched it at, lanes {lanes(run_launches)[key]}, "
               f"{len(run_launches[key])} bound sets")
@@ -1021,17 +1024,19 @@ def main() -> int:
 
     # the lane-cooperative kernels: ms per launch of every instantiation
     # at the widths of its rule's steps and of its paths: the Miller, exp_u
-    # and Fq12 bodies at 1 lane, 2, 4, 8 and 15 lanes per SM, the
-    # independent tier's and the Miller rows' widths, the line fold also at
-    # the widths the runs with unroll_static_loops=False launched it at;
-    # the GLV step at 1
-    # lane, 2 lanes per SM, the independent tier's, the Miller rows' and
-    # the ladder's widths; the better of two passes over the sizes, and at
+    # and Fq12 bodies and the G2 doubling step at 1 lane, 2, 4, 8 and 15
+    # lanes per SM, the
+    # independent tier's and the Miller rows' widths, the scan loop's line
+    # fold, square and doubling step also at the widths the runs with
+    # unroll_static_loops=False launched them at; the GLV step at 1 lane, 2
+    # lanes per SM, the independent tier's, the Miller rows' and the
+    # ladder's widths; the better of two passes over the sizes, and at
     # one lane each size's device time under torch.profiler
     sweep_widths = {**dict.fromkeys(FK.COOP, (1, 2 * sms, 4 * sms, 8 * sms,
                                               15 * sms, NI, B + 1)),
                     "glv_dbl_add": (1, 2 * sms, NI, B + 1, 2 * B)}
-    sweep_widths["fq12_mul_line"] += tuple(lanes(scan_widths)["fq12_mul_line"])
+    for key in ("fq12_mul_line", "fq12_sq", "g2_dbl_step"):
+        sweep_widths[key] += tuple(lanes(scan_widths)[key])
     coop_sweep = []
     with torch.inference_mode():
         for key, widths in sweep_widths.items():

@@ -1,6 +1,7 @@
 """The lane-cooperative kernels (`miller_dbl_body`, `expu_step`,
 `miller_dbl_body2`, `miller_add_body2`, `fq12_mul`, `miller_add_body`,
-`glv_dbl_add`, `expu_sq2`, `fq12_cyc_sq`, `fq12_mul_line`) off the card.
+`glv_dbl_add`, `expu_sq2`, `fq12_cyc_sq`, `fq12_mul_line`, `fq12_sq`,
+`g2_dbl_step`) off the card.
 
 Their level schedules (`kernels/coop_schedule.py`, generated into
 `coop_schedule.cuh`) are checked twice:
@@ -9,8 +10,9 @@ Their level schedules (`kernels/coop_schedule.py`, generated into
   products; `glv_dbl_add`'s masked selects as SEL chains), each level
   reading only slots that earlier levels wrote and writing no slot another
   op of the level reads; every product of the formula computed exactly
-  once (117, 90, 160, 123, 54, 80, 30, 36, 18 and 39, plus one load per
-  input El, no two products of the same operands); every output written
+  once (117, 90, 160, 123, 54, 80, 30, 36, 18, 39, 36 and 42, plus one
+  load per input El, no two products of the same operands); every output
+  written
   once, equal to the plain body by value; each schedule's tables byte for
   byte as they were measured on the card;
 * through the g++ build of `fused.cu` (`-DBN254_CHECK_BOUNDS`), whose host
@@ -22,8 +24,9 @@ Their level schedules (`kernels/coop_schedule.py`, generated into
   broadcasts (the two-pair bodies' constant line triple, `fq12_mul`'s
   second factor, `miller_add_body`'s G1 point); the two cyclotomic
   squaring kernels on easy-part outputs against the JAX package's generic
-  Fq12 square; and the sparse line fold against the JAX package's
-  `_fq12_mul_line_impl`.
+  Fq12 square; the sparse line fold against the JAX package's
+  `_fq12_mul_line_impl`; and the Fq12 square and the G2 doubling step
+  against its `_fq12_sq_impl` and `_dbl_step_impl`.
 """
 
 import ctypes
@@ -105,6 +108,10 @@ TABLE_DIGESTS = {
         "0e5982406bdc12b0bbb9e85dcaa154088c697676b92b086fe1cc3b04311eac58",
     "fq12_mul_line":
         "0323622c01d793e9a0821bbf7ee2f07288e6989d2fa7c467c9207ac59a20016e",
+    "fq12_sq":
+        "8bb3ac93226d2f23450b1fe419e6e86fc8643c407425189996f0a97b56c4ecdc",
+    "g2_dbl_step":
+        "74b581db375eeea47f9de0340ceac5d0cb23e8274f82a43462a16bc43d4bff53",
 }
 
 
@@ -341,30 +348,63 @@ def test_host_cyclotomic_squares_match_jax_generic_square(host_lib):
                 want_vals, (key, group)
 
 
-def test_host_line_fold_matches_jax(host_lib):
-    """`fq12_mul_line` at every G against the JAX package's
-    `_fq12_mul_line_impl` on the same numpy inputs at the pins, by value."""
+def check_host_against_jax(lib, key, seed, jax_body):
+    """The host build of `key` at every G against `jax_body(els)`, the JAX
+    package's body on the same numpy inputs at the pins (`els` yields them
+    as JAX Els in tree order), by value; outputs in the JAX body's tree
+    order."""
     from bn254_tpu.fields import limbs as JL
-    from bn254_tpu.fields import tower as JT
-    from bn254_tpu.pairing import miller as JM
 
     import jax.numpy as jnp
 
-    packed = inputs("fq12_mul_line", PINNED, 37)
-    els = iter([JL.El(jnp.asarray(x.astype(np.uint32)), *PINNED)
-                for x in packed])
-
-    def fq2():
-        return JT.Fq2(next(els), next(els))
-
-    f = JT.Fq12(*[JT.Fq6(fq2(), fq2(), fq2()) for _ in range(2)])
-    want = JM._fq12_mul_line_impl(f, fq2(), fq2(), fq2())
-    want_vals = [[int(v) % P for v in JL.to_ints(x.arr)]
-                 for six in want for pair in six for x in pair]
-    for group in FK.INSTANCES["fq12_mul_line"]:
-        got = np.zeros((12, NLIMBS, N), dtype=np.int64)
-        assert host(host_lib, "fq12_mul_line")(
-            np.ascontiguousarray(packed).ctypes.data, got.ctypes.data, N,
-            group) == 0
+    packed = inputs(key, PINNED, seed)
+    want = jax_body(iter([JL.El(jnp.asarray(x.astype(np.uint32)), *PINNED)
+                          for x in packed]))
+    leaves = [x for six in want for pair in six for x in pair]
+    assert len(leaves) == FK.arity(key)[1]
+    want_vals = [[int(v) % P for v in JL.to_ints(x.arr)] for x in leaves]
+    for group in FK.INSTANCES[key]:
+        got = np.zeros((len(leaves), NLIMBS, N), dtype=np.int64)
+        assert host(lib, key)(np.ascontiguousarray(packed).ctypes.data,
+                              got.ctypes.data, N, group) == 0
         assert [[int(v) for v in L.to_ints(x)] for x in got] == \
             want_vals, group
+
+
+def jax_fq2(els):
+    from bn254_tpu.fields import tower as JT
+
+    return JT.Fq2(next(els), next(els))
+
+
+def jax_fq12(els):
+    from bn254_tpu.fields import tower as JT
+
+    return JT.Fq12(*[JT.Fq6(jax_fq2(els), jax_fq2(els), jax_fq2(els))
+                     for _ in range(2)])
+
+
+def test_host_line_fold_matches_jax(host_lib):
+    """`fq12_mul_line` at every G against the JAX package's
+    `_fq12_mul_line_impl` on the same numpy inputs at the pins, by value."""
+    from bn254_tpu.pairing import miller as JM
+
+    check_host_against_jax(host_lib, "fq12_mul_line", 37, lambda els: (
+        JM._fq12_mul_line_impl(jax_fq12(els), jax_fq2(els), jax_fq2(els),
+                               jax_fq2(els))))
+
+
+@pytest.mark.parametrize("key", ["fq12_sq", "g2_dbl_step"])
+def test_host_square_and_doubling_match_jax(host_lib, key):
+    """`fq12_sq` and `g2_dbl_step` at every G against the JAX package's
+    `_fq12_sq_impl` and `_dbl_step_impl` (the point, then the line)."""
+    from bn254_tpu.fields import tower as JT
+    from bn254_tpu.pairing import miller as JM
+
+    bodies = {
+        "fq12_sq": lambda els: JT._fq12_sq_impl(jax_fq12(els)),
+        "g2_dbl_step": lambda els: JM._dbl_step_impl(
+            JM.ProjG2(jax_fq2(els), jax_fq2(els), jax_fq2(els)), next(els),
+            next(els)),
+    }
+    check_host_against_jax(host_lib, key, 41, bodies[key])
