@@ -123,6 +123,21 @@ def scalar_mul(ops, p: JPoint, scalar_limbs, nbits: int = 256) -> JPoint:
     return acc
 
 
+def eq(ops, p1: JPoint, p2: JPoint):
+    """Projective equality: X1 Z2^2 == X2 Z1^2 and Y1 Z2^3 == Y2 Z1^3,
+    with identity flags compared separately."""
+    i1 = is_identity(ops, p1)
+    i2 = is_identity(ops, p2)
+    z1z1 = ops.sq(p1.z)
+    z2z2 = ops.sq(p2.z)
+    x_eq = ops.eq(ops.mul(p1.x, z2z2), ops.mul(p2.x, z1z1))
+    y_eq = ops.eq(
+        ops.mul(ops.mul(p1.y, p2.z), z2z2), ops.mul(ops.mul(p2.y, p1.z), z1z1)
+    )
+    both_fin = (~i1) & (~i2) & x_eq & y_eq
+    return (i1 & i2) | both_fin
+
+
 def to_affine(ops, p: JPoint):
     """-> (x, y, infinity_mask). Identity maps to (0, 0, True)."""
     bs = ops.batch_shape(p.x)

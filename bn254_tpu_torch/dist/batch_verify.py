@@ -11,7 +11,8 @@ Counterpart of `bn254_tpu/dist/batch_verify.py`, single-device tiers only:
 2. `verify_batch_fused` — N tuples fused into ONE pairing-product check
    with random linear-combination weights:
    prod_i e([w_i]H_i, pk_i) * e(-sum_i [w_i]sig_i, G2) == 1, a single
-   shared final exponentiation.
+   shared final exponentiation; `verify_batch_fused_chunked` streams a
+   batch too large for one pass through it in chunks (BASELINE config 5).
 3. `verify_batch_adaptive` — tier 2 first; only a rejected batch pays for
    tier 1, which then says which tuples failed.
 
@@ -29,6 +30,7 @@ import torch
 from ..curve import g1 as DG1
 from ..curve import glv as GLV
 from ..curve import jacobian as J
+from ..errors import InvalidLengthError
 from ..fields import limbs as L
 from ..fields import tower as T
 from ..host import curve as HC
@@ -268,6 +270,54 @@ def verify_batch_fused(hx, hy, sx, sy, pqx, pqy, weights,
     pts = _fused_points(hx, hy, sx, sy, pqx, pqy, w, nb)
     f_red = _miller_reduce(*pts)
     return T.fq12_is_one(FE.final_exp(f_red))
+
+
+def _slice_batch(x, sl: slice):
+    """Slice the trailing batch dim of an El / Fq2 / GlvWeights tree (a
+    view: no copy)."""
+    if isinstance(x, GLV.GlvWeights):
+        return GLV.GlvWeights(_slice_batch(x.a, sl), _slice_batch(x.b, sl),
+                              x.bits)
+    return L.tree_map(lambda e: L.El(e.arr[..., sl], e.vmax, e.lmax), x)
+
+
+def _chunk_combine(f_acc, f_c):
+    """Fold one chunk's Miller product into the accumulator: one
+    `fq12_mul` (one kernel launch at one lane on the card)."""
+    return T.fq12_retag(T.fq12_mul(f_acc, f_c))
+
+
+@torch.inference_mode()
+def verify_batch_fused_chunked(hx, hy, sx, sy, pqx, pqy, weights,
+                               chunk: int,
+                               nbits: int | None = None) -> torch.Tensor:
+    """`verify_batch_fused` for batches too large for one pass (BASELINE
+    config 5: 1,048,576 tuples on one chip in chunks of 8,192).
+
+    The fused check's reduction is a monoid (the Fq12 Miller product; each
+    chunk's signature-sum row rides inside its own Miller batch, see
+    `_fused_points`), so the batch streams through in `chunk`-sized
+    pieces into one Fq12 accumulator, then ONE shared final
+    exponentiation: the unchunked check's accept/reject semantics. Each
+    chunk's intermediates die with its iteration, so device memory beyond
+    the inputs is O(chunk). A batch that is no multiple of `chunk` raises
+    InvalidLengthError.
+    """
+    w, nb = _resolve_weights(weights, nbits, hx.device)
+    B = hx.batch_shape[-1]
+    if chunk <= 0 or B % chunk != 0:
+        raise InvalidLengthError(
+            f"batch {B} must be a multiple of chunk {chunk}")
+
+    f_acc = None
+    for off in range(0, B, chunk):
+        sl = slice(off, off + chunk)
+        pts = _fused_points(
+            *(_slice_batch(x, sl) for x in (hx, hy, sx, sy, pqx, pqy, w)),
+            nb)
+        f_c = _miller_reduce(*pts)
+        f_acc = f_c if f_acc is None else _chunk_combine(f_acc, f_c)
+    return T.fq12_is_one(FE.final_exp(f_acc))
 
 
 class AdaptiveResult:

@@ -1,10 +1,12 @@
-// BN254 field and tower arithmetic for one lane: the device library of the
-// fused kernels (fused.cu) and the CIOS leaf of the montmul kernel.
+// BN254 field arithmetic for one lane: the device library of the fused
+// kernels (fused.cu) and the CIOS leaf of the montmul kernel.
 //
 // Numbers: little-endian limbs of 15 bits in uint32_t[18], Montgomery radix
-// R = 2^270, p's limbs below. Towers as in fields/tower.py:
+// R = 2^270, p's limbs below. The tower (fields/tower.py:
 //   Fq2 = Fq[i]/(i^2+1), Fq6 = Fq2[v]/(v^3 - xi), Fq12 = Fq6[w]/(w^2 - v),
-//   xi = 9 + i.
+//   xi = 9 + i)
+// lives in the level schedules of fused.cu's cooperative kernels
+// (kernels/coop_schedule.py), which run it Fp operation by Fp operation.
 //
 // `cios` is the leaf multiply, the same arithmetic as the Pallas kernel
 // bn254_tpu/kernels/montmul.py:_montmul_kernel and kernels/montmul.py's
@@ -13,18 +15,18 @@
 // a * b + R * p < 2^538 (fields/limbs.py:mont_mul asserts it on the host).
 // `cios_wide` computes the same limbs with 64-bit columns (one IMAD.WIDE a
 // multiply-add); glv_dbl_add, expu_sq2, fq12_cyc_sq, fq12_mul_line, fq12_sq,
-// g2_dbl_step and the two pow windows run it, the rest cios.
+// g2_dbl_step, g2_add_step and the two pow windows run it, the rest cios.
 //
-// Reduction schedule of the Fp and Fq2 functions (their own, not the
-// plain bodies' lazy one): every Fp they return is fully carried (limbs
-// < 2^15) and below 2p. Then every CIOS operand meets the contract
-// ((2p)^2 + R p < 2^538), the REDC of two such values is again below 2p
-// (ab/R + p < 4p^2/R + p < 2p), and sums and differences come back below 2p
-// with one conditional subtraction or addition of 2p. An input El (value
-// < 2^270, limbs < 2^26) is carried, then brought into [0, 2p) by one CIOS
-// with R mod p (`fp_load`), as the plain pins' `vreduce` does; an output is
-// made canonical (`fp_canon`) before it is stored. Values agree with the
-// plain bodies modulo p; limbs need not.
+// Reduction schedule of the fused kernels (their own, not the plain
+// bodies' lazy one): every Fp they hold is fully carried (limbs < 2^15) and
+// below 2p. Then every CIOS operand meets the contract ((2p)^2 + R p <
+// 2^538), the REDC of two such values is again below 2p (ab/R + p < 4p^2/R
+// + p < 2p), and sums and differences come back below 2p with one
+// conditional subtraction of 2p (`fp_fold_2p`). An input El (value < 2^270,
+// limbs < 2^26) is carried, then brought into [0, 2p) by one CIOS with R mod
+// p, as the plain pins' `vreduce` does; an output is made canonical
+// (`fp_canon_limbs`) before it is stored. Values agree with the plain bodies
+// modulo p; limbs need not.
 //
 // Every function is __host__ __device__ under nvcc (BN_FN) and plain C++
 // under a host compiler, so tests/test_torch_fused_host.py can build the
@@ -38,11 +40,9 @@
 
 #ifdef __CUDACC__
 #define BN_FN __host__ __device__
-#define BN_NOINLINE __noinline__
 #define BN_INLINE __forceinline__
 #else
 #define BN_FN
-#define BN_NOINLINE __attribute__((noinline))
 #define BN_INLINE inline
 #endif
 
@@ -219,29 +219,6 @@ BN_FN BN_INLINE void fp_check(const Fp& a) {
 #endif
 }
 
-BN_FN BN_NOINLINE void fp_mul(Fp& r, const Fp& a, const Fp& b) {
-#ifdef BN254_CHECK_BOUNDS
-  for (int i = 0; i < kLimbs; ++i) {
-    BN_CHECK(a.l[i] < (1u << 16));
-    BN_CHECK(b.l[i] < (1u << 16));
-  }
-#endif
-  uint32_t out[kLimbs];
-  cios(out, a.l, b.l);
-#pragma unroll
-  for (int i = 0; i < kLimbs; ++i) r.l[i] = out[i];
-  fp_check(r);
-}
-
-// An input value a < 2^270 = R with carried limbs (< 2^15) -> [0, 2p):
-// REDC(a * (R mod p)) = a mod p, below a p / R + p < 2p.
-BN_FN BN_NOINLINE void fp_load(Fp& r, const Fp& a) {
-  Fp k;
-#pragma unroll
-  for (int i = 0; i < kLimbs; ++i) k.l[i] = rmodp_limb(i);
-  fp_mul(r, a, k);
-}
-
 // s in [0, 4p) with limbs < 2^15 -> s or s - 2p, whichever is below 2p
 BN_FN BN_INLINE void fp_fold_2p(Fp& r, const uint32_t s[kLimbs]) {
   uint32_t d[kLimbs];
@@ -255,39 +232,6 @@ BN_FN BN_INLINE void fp_fold_2p(Fp& r, const uint32_t s[kLimbs]) {
   const uint32_t keep = 0u - borrow;  // all ones where s < 2p
 #pragma unroll
   for (int i = 0; i < kLimbs; ++i) r.l[i] = (s[i] & keep) | (d[i] & ~keep);
-  fp_check(r);
-}
-
-BN_FN BN_NOINLINE void fp_add(Fp& r, const Fp& a, const Fp& b) {
-  uint32_t s[kLimbs];
-  uint32_t c = 0u;
-#pragma unroll
-  for (int i = 0; i < kLimbs; ++i) {
-    const uint32_t v = a.l[i] + b.l[i] + c;
-    s[i] = v & kMask;
-    c = v >> kLimbBits;
-  }
-  fp_fold_2p(r, s);
-}
-
-BN_FN BN_NOINLINE void fp_sub(Fp& r, const Fp& a, const Fp& b) {
-  uint32_t d[kLimbs];
-  uint32_t borrow = 0u;
-#pragma unroll
-  for (int i = 0; i < kLimbs; ++i) {
-    const uint32_t v = a.l[i] + (1u << kLimbBits) - b.l[i] - borrow;
-    d[i] = v & kMask;
-    borrow = 1u - (v >> kLimbBits);
-  }
-  // a < b: add 2p back (the carry out of the top limb cancels the borrow)
-  const uint32_t add = 0u - borrow;
-  uint32_t c = 0u;
-#pragma unroll
-  for (int i = 0; i < kLimbs; ++i) {
-    const uint32_t v = d[i] + (p2_limb(i) & add) + c;
-    r.l[i] = v & kMask;
-    c = v >> kLimbBits;
-  }
   fp_check(r);
 }
 
@@ -311,8 +255,6 @@ BN_FN BN_INLINE void fp_canon_limbs(uint32_t r[kLimbs], const uint32_t a[kLimbs]
   for (int i = 0; i < kLimbs; ++i) r[i] = (a[i] & keep) | (d[i] & ~keep);
 }
 
-BN_FN BN_NOINLINE void fp_canon(Fp& r, const Fp& a) { fp_canon_limbs(r.l, a.l); }
-
 // a == 0 mod p, for a in [0, 2p) with carried limbs
 BN_FN BN_INLINE bool fp_is_zero(const uint32_t a[kLimbs]) {
   uint32_t c[kLimbs];
@@ -322,119 +264,6 @@ BN_FN BN_INLINE bool fp_is_zero(const uint32_t a[kLimbs]) {
   for (int i = 0; i < kLimbs; ++i) any |= c[i];
   return any == 0u;
 }
-
-BN_FN BN_INLINE void fp_neg(Fp& r, const Fp& a) {
-  Fp z;
-  fp_zero(z);
-  fp_sub(r, z, a);
-}
-
-// ---------------------------------------------------------------------------
-// Fq2 (fields/tower.py:163-217)
-// ---------------------------------------------------------------------------
-
-struct Fq2 {
-  Fp c0, c1;
-};
-
-BN_FN BN_INLINE void fq2_add(Fq2& r, const Fq2& a, const Fq2& b) {
-  fp_add(r.c0, a.c0, b.c0);
-  fp_add(r.c1, a.c1, b.c1);
-}
-
-BN_FN BN_INLINE void fq2_sub(Fq2& r, const Fq2& a, const Fq2& b) {
-  fp_sub(r.c0, a.c0, b.c0);
-  fp_sub(r.c1, a.c1, b.c1);
-}
-
-BN_FN BN_INLINE void fq2_neg(Fq2& r, const Fq2& a) {
-  fp_neg(r.c0, a.c0);
-  fp_neg(r.c1, a.c1);
-}
-
-BN_FN BN_INLINE void fq2_double(Fq2& r, const Fq2& a) { fq2_add(r, a, a); }
-
-// Karatsuba: 3 leaves
-BN_FN BN_NOINLINE void fq2_mul(Fq2& r, const Fq2& a, const Fq2& b) {
-  Fp sa, sb, t0, t1, t2;
-  fp_add(sa, a.c0, a.c1);
-  fp_add(sb, b.c0, b.c1);
-  fp_mul(t0, a.c0, b.c0);
-  fp_mul(t1, a.c1, b.c1);
-  fp_mul(t2, sa, sb);
-  fp_sub(r.c0, t0, t1);
-  fp_sub(t2, t2, t0);
-  fp_sub(r.c1, t2, t1);
-}
-
-// (a0+a1)(a0-a1) and a0 * 2a1: 2 leaves
-BN_FN BN_NOINLINE void fq2_sq(Fq2& r, const Fq2& a) {
-  Fp s, d, a1x2;
-  fp_add(s, a.c0, a.c1);
-  fp_sub(d, a.c0, a.c1);
-  fp_add(a1x2, a.c1, a.c1);
-  fp_mul(r.c1, a.c0, a1x2);
-  fp_mul(r.c0, s, d);
-}
-
-BN_FN BN_NOINLINE void fq2_mul_fp(Fq2& r, const Fq2& a, const Fp& s) {
-  fp_mul(r.c0, a.c0, s);
-  fp_mul(r.c1, a.c1, s);
-}
-
-// ---------------------------------------------------------------------------
-// the G2 steps (pairing/miller.py:125-188)
-// ---------------------------------------------------------------------------
-
-struct ProjG2 {
-  Fq2 x, y, z;
-};
-
-struct Line {
-  Fq2 a, b, c;
-};
-
-// chord-line mixed addition T + Q (Q affine), line scaled by lam
-BN_FN BN_NOINLINE void add_step(ProjG2& out, Line& ln, const ProjG2& t,
-                                const Fq2& qx, const Fq2& qy, const Fp& xp,
-                                const Fp& yp) {
-  Fq2 theta, lam, cc, dd, ee, ff, gg, hh, u, v;
-  fq2_mul(u, qy, t.z);
-  fq2_sub(theta, t.y, u);
-  fq2_mul(u, qx, t.z);
-  fq2_sub(lam, t.x, u);
-  fq2_sq(cc, theta);
-  fq2_sq(dd, lam);
-  fq2_mul(ee, lam, dd);
-  fq2_mul(ff, t.z, cc);
-  fq2_mul(gg, t.x, dd);
-  fq2_add(u, ee, ff);
-  fq2_double(v, gg);
-  fq2_sub(hh, u, v);
-  // line first: out may not alias t, but keep the order of the formulas
-  fq2_neg(u, lam);
-  fq2_mul_fp(ln.a, u, yp);
-  fq2_mul_fp(ln.b, theta, xp);
-  fq2_mul(u, lam, qy);
-  fq2_mul(v, theta, qx);
-  fq2_sub(ln.c, u, v);
-  // point
-  fq2_mul(out.x, lam, hh);
-  fq2_sub(u, gg, hh);
-  fq2_mul(u, theta, u);
-  fq2_mul(v, ee, t.y);
-  fq2_sub(out.y, u, v);
-  fq2_mul(out.z, t.z, ee);
-}
-
-// ---------------------------------------------------------------------------
-// add_step above is the one-thread body of fused.cu's g2_add_step. The
-// cooperative bodies (the four Miller digit bodies, expu_step, expu_sq2,
-// fq12_mul, fq12_sq, fq12_cyc_sq, fq12_mul_line, g2_dbl_step and
-// glv_dbl_add) are level schedules over the same formulas instead (fused.cu,
-// coop_schedule.py), and the two pow windows (el_pow_step_mul,
-// el_pow_step_sq) fused.cu's register-resident chain over cios_wide.
-// ---------------------------------------------------------------------------
 
 // the window of the fused pow chain (fields/limbs.py:_POW_WINDOW)
 constexpr int kPowWindow = 3;

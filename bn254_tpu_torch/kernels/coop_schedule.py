@@ -1,13 +1,13 @@
 """Level schedules of the lane-cooperative kernels of `fused.cu`.
 
-`miller_dbl_body`, `miller_add_body`, `expu_step`, `expu_sq2`, `fq12_mul`,
-`fq12_cyc_sq`, `miller_dbl_body2`, `miller_add_body2`, `glv_dbl_add`,
-`fq12_mul_line`, `fq12_sq` and `g2_dbl_step` run as a group of G threads
+Every fused kernel but the two pow windows (`miller_dbl_body`,
+`miller_add_body`, `expu_step`, `expu_sq2`, `fq12_mul`, `fq12_cyc_sq`,
+`miller_dbl_body2`, `miller_add_body2`, `glv_dbl_add`, `fq12_mul_line`,
+`fq12_sq`, `g2_dbl_step` and `g2_add_step`) runs as a group of G threads
 per lane (`fused.cu`, "Design"). Their bodies are traced here, Fp
-operation by Fp operation, from formulas that mirror `bn254_tower.cuh`'s
-functions line for line (`add_step` and the Fq2 layer) and the plain
-bodies (`fields/tower.py:fq6_mul, _fq12_mul_impl, _fq12_sq_impl,
-_fq12_cyc_sq_impl`, `pairing/miller.py:_dbl_step_impl,
+operation by Fp operation, from formulas that mirror the plain bodies
+(`fields/tower.py:fq2_mul, fq2_sq, fq6_mul, _fq12_mul_impl, _fq12_sq_impl,
+_fq12_cyc_sq_impl`, `pairing/miller.py:_dbl_step_impl, _add_step_impl,
 _fq12_mul_line_impl, _dbl_body2_impl`, `curve/jacobian.py:double, add`),
 and cut into *levels*: sets of operations that read only what earlier
 levels wrote. The group runs a level with thread g taking operations g,
@@ -16,12 +16,12 @@ g + G, ... and synchronises between levels.
 An operation (`Op`) is one of
 
 * LOAD: input El `a` of the lane, carried and brought into [0, 2p) by one
-  CIOS product with R mod p (`fp_load`);
-* MUL: the CIOS product of the values in slots `a` and `b` (`fp_mul`);
+  CIOS product with R mod p;
+* MUL: the CIOS product of the values in slots `a` and `b`;
 * LIN: a chain of additions on one accumulator, `b` steps from `steps[a]`:
   SET s (acc = slot s), ZERO (acc = 0), ADD s (acc + s), SUB s (acc - s),
-  RSUB s (s - acc), DBL (acc + acc), each with `fp_add` / `fp_sub`'s
-  result (below 2p, limbs below 2^15). A chain absorbs every linear
+  RSUB s (s - acc), DBL (acc + acc), each result brought below 2p with
+  limbs below 2^15 (`fp_fold_2p`). A chain absorbs every linear
   intermediate that only one later linear operation reads, so a level of
   additions is one short loop per thread;
 * SEL: a chain of masked selects, `b` steps from `steps[a]`: IF_ZERO s and
@@ -113,8 +113,7 @@ class Trace:
         return self._node("sel", *steps)
 
 
-# -- the formulas of bn254_tower.cuh and the plain bodies, over (c0, c1) /
-# (c0, c1, c2) tuples
+# -- the formulas of the plain bodies, over (c0, c1) / (c0, c1, c2) tuples
 
 
 class Tower:
@@ -471,6 +470,18 @@ def trace_g2_dbl_step():
     return tr, _flat(tw.dbl_step(t, xp, yp))
 
 
+def trace_g2_add_step():
+    """(t, qx, qy, xp, yp) -> (t + q, its chord line (a, b, c)): 12 -> 12
+    Els."""
+    tr = Trace()
+    tw = Tower(tr)
+    it = iter([tr.load(i) for i in range(12)])
+    t = tuple((next(it), next(it)) for _ in range(3))
+    qx, qy = (next(it), next(it)), (next(it), next(it))
+    xp, yp = next(it), next(it)
+    return tr, _flat(tw.add_step(t, qx, qy, xp, yp))
+
+
 def trace_glv_dbl_add():
     """(acc, sel) -> 2 acc + sel, G1 Jacobian points: 6 -> 3 Els."""
     tr = Trace()
@@ -495,6 +506,7 @@ BODIES = {
     "fq12_mul_line": (trace_fq12_mul_line, 39, True),
     "fq12_sq": (trace_fq12_sq, 36, True),
     "g2_dbl_step": (trace_g2_dbl_step, 42, True),
+    "g2_add_step": (trace_g2_add_step, 41, True),
 }
 
 

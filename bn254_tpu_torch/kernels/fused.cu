@@ -31,51 +31,57 @@
 // with the plain version BY CANONICAL VALUE plus the bound check, not limb
 // for limb (chip_smoke.py and tests/test_torch_fused_host.py compare so).
 //
-// Design, the cooperative kernels (miller_dbl_body, miller_add_body, expu_step,
-// fq12_mul, miller_dbl_body2, miller_add_body2, glv_dbl_add, expu_sq2,
-// fq12_cyc_sq, fq12_mul_line, fq12_sq, g2_dbl_step): a group of G threads per
-// lane. Their bodies are level schedules (kernels/coop_schedule.py, generated
-// into coop_schedule.cuh): each level is a set of independent Fp operations (a
-// CIOS product, an input load, one thread's chain of additions, or its chain of
-// masked selects) that read only what earlier levels wrote. Thread g of the
-// group runs operations g, g + G, ... of a level, then the group synchronises
-// (__syncwarp for G <= 32, __syncthreads for a 64-thread group). A lane's
-// values live in shared memory, one slot of 9 words (two 15-bit limbs each) per
-// Fp, reused once dead: 91, 86, 108, 108, 97, 92, 20, 42, 42, 63, 72 and 33
-// slots (3.3, 3.1, 3.9, 3.9, 3.5, 3.3, 0.7, 1.5, 1.5, 2.3, 2.6 and 1.2 KB). The
-// products of one product depth share a level (4, 4, 3, 1, 5, 4, 7, 2, 1, 1, 1
-// and 3 such levels, loads excluded; fq12_mul's 54 products are one level, each
-// cyclotomic square's 18 another, the line fold's 39 one, fq12_sq's 36 one),
-// the leaf runs with its operands in registers, and results agree with the
-// plain bodies by canonical value. The leaf is the schedule's (S::kWideLeaf):
-// cios_wide for glv_dbl_add, expu_sq2, fq12_cyc_sq, fq12_mul_line, fq12_sq and
-// g2_dbl_step, cios for the six others; BN254_WIDE_LEAF=0 or 1, where defined,
-// sets it for every schedule (kernel_times.py --leaf builds so). expu_sq2
-// (acc^4) is two Granger-Scott squarings, 36 products in 19 levels; fq12_cyc_sq
-// one, 18 in 10. fq12_mul_line (f times the sparse line a + b w + c v w) is the
-// plain body's Karatsuba over Fq6: fq6_mul_by_0's 9 products and two
-// fq6_mul_by_01 of 15, 39 products in 8 levels (18 loads, then additions, the
-// 39 products, then the Karatsuba's additions). fq12_sq (a^2, the plain body's
-// complex squaring over Fq6: two fq6_mul of 18 products) runs its 36 products
-// in one level of its 10; g2_dbl_step (2T and its tangent line at P, the
-// point's Els, then the line's, as the plain body returns them) its 42 in three
-// levels of 10, 17 and 15, of its 14. glv_dbl_add (one Shamir step, 2 acc +
-// sel) is the plain body's dbl-2009-l, add-2007-bl and the doubling of 2 acc
-// that the plain complete add computes on every lane, 30 products in 22 levels
-// of 1-7 operations, then one SEL per output coordinate with the plain body's
-// four selects in its order. The Miller bodies keep the plain bodies' order
-// (the square of a doubling digit, the step, the line fold, then the two-pair
-// bodies' constant line), and the two-pair bodies' constant triple (ca, cb, cc)
-// is read like any other input El: the wrapper's packing broadcasts it over the
-// lanes. G comes from the lane count and the card's SM count (kCoopRule below,
-// kGlvRule for glv_dbl_add, kScanRule for fq12_sq and g2_dbl_step): 64 for the
-// one-lane final exponentiation, the narrow end of the Fq12 product tree and
-// the scan loop's 65 and 128 lanes, 8 for 4,096 and 8,193 lanes, 4 for
-// fq12_sq's and g2_dbl_step's 8,192 and 8,193, 2 for glv_dbl_add's 16,384. What
-// bounds them: at thousands of lanes the instruction rate of the leaves; at one
-// lane the latency of the levels, most of them chains of additions whose
-// carries run limb by limb; glv_dbl_add, whose levels hold 1-7 operations, the
-// latency of its 22 levels at ~8 warps a SM.
+// Design, the cooperative kernels (every key but the two pow windows:
+// miller_dbl_body, miller_add_body, expu_step, fq12_mul, miller_dbl_body2,
+// miller_add_body2, glv_dbl_add, expu_sq2, fq12_cyc_sq, fq12_mul_line,
+// fq12_sq, g2_dbl_step, g2_add_step): a group of G threads per lane. Their
+// bodies are level schedules (kernels/coop_schedule.py, generated into
+// coop_schedule.cuh): each level is a set of independent Fp operations (a
+// CIOS product, an input load, one thread's chain of additions, or its chain
+// of masked selects) that read only what earlier levels wrote. Thread g of
+// the group runs operations g, g + G, ... of a level, then the group
+// synchronises (__syncwarp for G <= 32, __syncthreads for a 64-thread group).
+// A lane's values live in shared memory, one slot of 9 words (two 15-bit
+// limbs each) per Fp, reused once dead: 91, 86, 108, 108, 97, 92, 20, 42, 42,
+// 63, 72, 33 and 28 slots (3.3, 3.1, 3.9, 3.9, 3.5, 3.3, 0.7, 1.5, 1.5, 2.3,
+// 2.6, 1.2 and 1.0 KB). The products of one product depth share a level (4,
+// 4, 3, 1, 5, 4, 7, 2, 1, 1, 1, 3 and 4 such levels, loads excluded;
+// fq12_mul's 54 products are one level, each cyclotomic square's 18 another,
+// the line fold's 39 one, fq12_sq's 36 one), the leaf runs with its operands
+// in registers, and results agree with the plain bodies by canonical value.
+// The leaf is the schedule's (S::kWideLeaf): cios_wide for glv_dbl_add,
+// expu_sq2, fq12_cyc_sq, fq12_mul_line, fq12_sq, g2_dbl_step and
+// g2_add_step, cios for the six others; BN254_WIDE_LEAF=0 or 1, where
+// defined, sets it for every schedule (kernel_times.py --leaf builds so).
+// expu_sq2 (acc^4) is two Granger-Scott squarings, 36 products in 19 levels;
+// fq12_cyc_sq one, 18 in 10. fq12_mul_line (f times the sparse line a + b w +
+// c v w) is the plain body's Karatsuba over Fq6: fq6_mul_by_0's 9 products
+// and two fq6_mul_by_01 of 15, 39 products in 8 levels (18 loads, then
+// additions, the 39 products, then the Karatsuba's additions). fq12_sq (a^2,
+// the plain body's complex squaring over Fq6: two fq6_mul of 18 products)
+// runs its 36 products in one level of its 10; g2_dbl_step (2T and its
+// tangent line at P, the point's Els, then the line's, as the plain body
+// returns them) its 42 in three levels of 10, 17 and 15, of its 14;
+// g2_add_step (T + Q for an affine Q and its chord line at P, in the same
+// order) its 41 in four levels of 6, 14, 9 and 12, of its 16. glv_dbl_add
+// (one Shamir step, 2 acc + sel) is the plain body's dbl-2009-l, add-2007-bl
+// and the doubling of 2 acc that the plain complete add computes on every
+// lane, 30 products in 22 levels of 1-7 operations, then one SEL per output
+// coordinate with the plain body's four selects in its order. The Miller
+// bodies keep the plain bodies' order (the square of a doubling digit, the
+// step, the line fold, then the two-pair bodies' constant line), and the
+// two-pair bodies' constant triple (ca, cb, cc) is read like any other input
+// El: the wrapper's packing broadcasts it over the lanes. G comes from the
+// lane count and the card's SM count (kCoopRule below, kGlvRule for
+// glv_dbl_add, kScanRule for the scan loop's fq12_sq, g2_dbl_step and
+// g2_add_step): 64 for the one-lane final exponentiation, the narrow end of
+// the Fq12 product tree and the scan loop's 65 and 128 lanes, 8 for 4,096
+// and 8,193 lanes, 4 for the scan loop's 8,192 and 8,193, 2 for
+// glv_dbl_add's 16,384. What bounds them: at thousands of lanes the
+// instruction rate of the leaves; at one lane the latency of the levels,
+// most of them chains of additions whose carries run limb by limb;
+// glv_dbl_add, whose levels hold 1-7 operations, the latency of its 22
+// levels at ~8 warps a SM.
 //
 // Design, the pow windows el_pow_step_mul (acc^8 m) and el_pow_step_sq
 // (acc^8), one body (lane_el_pow_step<kMul>): the input loads, three
@@ -92,17 +98,6 @@
 // 0.0387 / 0.0547 / 0.0775; 65,536 0.0385 / 0.0745 / 0.0982 / 0.1480. What
 // bounds them: at 65,536 lanes the instruction rate of their leaves, at one
 // lane the latency of the chain.
-//
-// Design, the last one-thread kernel (g2_add_step): one thread per lane,
-// 64-thread blocks (8,193 Miller lanes fill 129 blocks, about one per SM).
-// Its body is bn254_tower.cuh's add_step, one launch a step, so the scan
-// form pays a launch and an HBM round trip of T and the line per step. The
-// Fq2 temporaries live in local memory; the Fq2-level functions and the
-// leaf are not inlined, which keeps the nvcc build in seconds. The limb
-// layout makes each lane's limb loads coalesced across a warp. What bounds
-// it: per lane 41 leaf multiplies of 648 32-bit multiply-adds each, so the
-// INT32 rate is the nominal bound; at one thread per lane, latency of the
-// dependent leaf chain is what it actually pays.
 //
 // Under a host compiler (no __CUDACC__) the file instead exports
 // bn254_host_<key>(in, out, n), the same lane bodies in a plain loop (the
@@ -136,39 +131,6 @@ BN_FN BN_INLINE void load_raw(Fp& raw, int el, const int64_t* in, int64_t n,
   BN_CHECK(c == 0u);  // value < 2^270
 }
 
-// Els first .. first+count-1 of lane e (value < 2^270, limbs < 2^26),
-// carried and brought into [0, 2p)
-BN_FN BN_INLINE void load_els(Fp* dst, int count, int first,
-                              const int64_t* in, int64_t n, int64_t e) {
-  for (int k = 0; k < count; ++k) {
-    Fp raw;
-    load_raw(raw, first + k, in, n, e);
-    fp_load(dst[k], raw);
-  }
-}
-
-// canonical outputs: below p, limbs below 2^15
-BN_FN BN_INLINE void store_els(int64_t* out, int first, const Fp* src,
-                               int count, int64_t n, int64_t e) {
-  for (int k = 0; k < count; ++k) {
-    Fp c;
-    fp_canon(c, src[k]);
-#pragma unroll
-    for (int i = 0; i < kLimbs; ++i)
-      out[((first + k) * kLimbs + i) * n + e] = c.l[i];
-  }
-}
-
-template <typename T>
-BN_FN BN_INLINE Fp* els(T& x) {
-  return reinterpret_cast<Fp*>(&x);
-}
-
-template <typename T>
-BN_FN BN_INLINE const Fp* els(const T& x) {
-  return reinterpret_cast<const Fp*>(&x);
-}
-
 // REDC(a b) by cios_wide, operands and result in registers
 BN_FN BN_INLINE void fp_mul_wide(Fp& r, const Fp& a, const Fp& b) {
 #ifdef BN254_CHECK_BOUNDS
@@ -184,7 +146,7 @@ BN_FN BN_INLINE void fp_mul_wide(Fp& r, const Fp& a, const Fp& b) {
 }
 
 // inputs (acc, m) -> acc^8 m (kMul) or (acc) -> acc^8: the loads (REDC by
-// R mod p, as fp_load), three squares and, for a nonzero window, the
+// R mod p, as a schedule's LOAD), three squares and, for a nonzero window, the
 // multiply, one chain of cios_wide products (six, or four with kMul off)
 template <bool kMul>
 BN_FN BN_INLINE void lane_el_pow_step(const int64_t* in, int64_t* out,
@@ -206,23 +168,6 @@ BN_FN BN_INLINE void lane_el_pow_step(const int64_t* in, int64_t* out,
   fp_canon_limbs(c, v[0].l);
 #pragma unroll
   for (int i = 0; i < kLimbs; ++i) out[i * n + e] = c[i];
-}
-
-// inputs (t, qx, qy, xp, yp) -> (t + q, its chord line (a, b, c))
-BN_FN BN_INLINE void lane_g2_add_step(const int64_t* in, int64_t* out,
-                                      int64_t n, int64_t e) {
-  ProjG2 t, to;
-  Line ln;
-  Fq2 qx, qy;
-  Fp xp, yp;
-  load_els(els(t), 6, 0, in, n, e);
-  load_els(els(qx), 2, 6, in, n, e);
-  load_els(els(qy), 2, 8, in, n, e);
-  load_els(&xp, 1, 10, in, n, e);
-  load_els(&yp, 1, 11, in, n, e);
-  add_step(to, ln, t, qx, qy, xp, yp);
-  store_els(out, 0, els(to), 6, n, e);
-  store_els(out, 6, els(ln), 6, n, e);
 }
 
 }  // namespace bn254
@@ -319,9 +264,9 @@ constexpr CoopRule kCoopRule[] = {{3, 64}, {11, 32}, {23, 16}, {kAnyWidth, 8}};
 // SM). 4-31 lanes a SM, which no path runs, take G=4 unmeasured.
 constexpr CoopRule kGlvRule[] = {{3, 64}, {94, 4}, {kAnyWidth, 2}};
 
-// fq12_sq's and g2_dbl_step's rows, from their own sweep (coop_sweep at 1,
-// 2, 4, 8, 15, 32 and 63 lanes a SM; NVIDIA H100 80GB HBM3, 700.00 W), ms per
-// launch, fq12_sq / g2_dbl_step: at 1 lane a SM (1, 65 and 128 lanes: the
+// The scan loop's rows (fq12_sq, g2_dbl_step, g2_add_step), from their own
+// sweep (coop_sweep at 1, 2, 4, 8, 15, 32 and 63 lanes a SM; NVIDIA H100
+// 80GB HBM3, 700.00 W), ms per launch, fq12_sq / g2_dbl_step: at 1 lane a SM (1, 65 and 128 lanes: the
 // tampered 64-tuple fallback and the key check) G=64 0.0288 / 0.0306 (G=32
 // 0.0312 / 0.0304; one lane, device time, 0.0279 / 0.0285 against 0.0281 /
 // 0.0283); at 4 G=32 0.0318 / 0.0306 (G=16 0.0355 / 0.0330, G=64 0.0395 /
@@ -333,7 +278,12 @@ constexpr CoopRule kGlvRule[] = {{3, 64}, {94, 4}, {kAnyWidth, 2}};
 // block: fq12_sq's 41.5 KB of slots a block leave room for 5 blocks a SM
 // (g2_dbl_step's 19 KB for 10), enough for one wave of 8,193 lanes, and its
 // product levels (36; 10, 17 and 15) idle fewer of a group's threads in
-// their last round than G=8's.
+// their last round than G=8's. g2_add_step (product levels of 6, 14, 9 and
+// 12; 16 KB a block at G=4, 10 blocks a SM) fits the same rule, within 2.2 %
+// of the best G at every width its paths run it at (coop_sweep and
+// kernel_times.py --every-group): at 1, 65 and 128 lanes G=64 0.0349 /
+// 0.0359 / 0.0360 against G=32's 0.0342 / 0.0356 / 0.0356; at 8,192 and
+// 8,193 G=4 0.0868 / 0.0876, where G=8 takes 0.1033 / 0.1034.
 constexpr CoopRule kScanRule[] = {
     {3, 64}, {5, 32}, {23, 16}, {47, 8}, {kAnyWidth, 4}};
 
@@ -380,9 +330,9 @@ BN_COOP void slot_put(uint32_t* st, uint32_t slot, const uint32_t r[kLimbs]) {
   for (int j = 0; j < kSlotWords; ++j) w[j] = r[2 * j] | (r[2 * j + 1] << 16);
 }
 
-// a chain of additions (coop_schedule.py, LIN): each step is fp_add's or
-// fp_sub's result, as fold_2p(lhs + (2p - rhs)) for a difference, which is
-// fp_sub's value and so its (carried) limbs
+// a chain of additions (coop_schedule.py, LIN): each step's result below 2p
+// with carried limbs, a sum as fold_2p(lhs + rhs), a difference as
+// fold_2p(lhs + (2p - rhs))
 BN_COOP void coop_chain(Fp& acc, const uint16_t* steps, uint32_t len,
                         const uint32_t* st) {
   for (uint32_t s = 0; s < len; ++s) {
@@ -473,7 +423,7 @@ BN_COOP void coop_op(int k, uint32_t* st, const int64_t* in, int64_t* out,
     coop_select(r, S::steps() + a, b, st);
   } else {
     uint32_t x[kLimbs], y[kLimbs];
-    if (kind == kOpLoad) {  // input El a: carried, then fp_load
+    if (kind == kOpLoad) {  // input El a: carried, then REDC by R mod p
       uint32_t c = 0u;
 #pragma unroll
       for (int i = 0; i < kLimbs; ++i) {
@@ -750,7 +700,6 @@ constexpr int kHostSms = 132;  // the H100's
 
 BN254_FUSED_KERNEL(el_pow_step_mul, lane_el_pow_step<true>)
 BN254_FUSED_KERNEL(el_pow_step_sq, lane_el_pow_step<false>)
-BN254_FUSED_KERNEL(g2_add_step, lane_g2_add_step)
 BN254_COOP_KERNEL(miller_dbl_body, CoopMillerDblBody, BN254_COOP_GROUPS,
                   kCoopRule)
 BN254_COOP_KERNEL(expu_step, CoopExpuStep, BN254_COOP_GROUPS, kCoopRule)
@@ -768,3 +717,4 @@ BN254_COOP_KERNEL(fq12_mul_line, CoopFq12MulLine, BN254_COOP_GROUPS,
                   kCoopRule)
 BN254_COOP_KERNEL(fq12_sq, CoopFq12Sq, BN254_COOP_GROUPS, kScanRule)
 BN254_COOP_KERNEL(g2_dbl_step, CoopG2DblStep, BN254_COOP_GROUPS, kScanRule)
+BN254_COOP_KERNEL(g2_add_step, CoopG2AddStep, BN254_COOP_GROUPS, kScanRule)

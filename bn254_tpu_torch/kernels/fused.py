@@ -250,7 +250,8 @@ INSTANCES = {**dict.fromkeys(("miller_dbl_body", "expu_step",
                               "fq12_mul", "miller_add_body"), _GROUPS),
              "glv_dbl_add": (1, 2, *_GROUPS),
              **dict.fromkeys(("expu_sq2", "fq12_cyc_sq", "fq12_mul_line",
-                              "fq12_sq", "g2_dbl_step"), _GROUPS)}
+                              "fq12_sq", "g2_dbl_step", "g2_add_step"),
+                             _GROUPS)}
 COOP = tuple(INSTANCES)
 COOP_INFO = ("blocks_per_sm", "smem_per_block", "lanes_per_block",
              "registers", "stack_bytes", "threads_per_block")

@@ -2,7 +2,7 @@
 """Smoke run of bn254_tpu_torch on one NVIDIA card (H100).
 
     python3 chip_smoke.py [--batch 8192] [--independent 4096] [--keys 16]
-                          [--seed 2026]
+                          [--seed 2026] [--chunked 131072]
 
 Phases, each of which exits non-zero on failure:
 
@@ -13,8 +13,9 @@ Phases, each of which exits non-zero on failure:
    spills per kernel; for each instantiation of the lane-cooperative
    kernels (`fused.INSTANCES`: G = 4 ... 64 of miller_dbl_body, expu_step,
    miller_dbl_body2, miller_add_body2, fq12_mul, miller_add_body, expu_sq2,
-   fq12_cyc_sq, fq12_mul_line, fq12_sq and g2_dbl_step, G = 1 ... 64 of
-   glv_dbl_add), resident blocks per SM, shared memory per block, lanes per block, registers and stack
+   fq12_cyc_sq, fq12_mul_line, fq12_sq, g2_dbl_step and g2_add_step,
+   G = 1 ... 64 of glv_dbl_add), resident blocks per SM, shared memory per
+   block, lanes per block, registers and stack
    (cudaOccupancyMaxActiveBlocksPerMultiprocessor and
    cudaFuncGetAttributes, through fused.cu's C exports), and the size each
    launcher's rule picks at the widths the paths run; the SASS instruction
@@ -36,13 +37,14 @@ Phases, each of which exits non-zero on failure:
      block, and an unbatched (18,) operand; the two-pair Miller bodies also
      with their constant line triple (ca, cb, cc) unbatched in its real
      place, between batched operands. The kernels with several threads per
-     lane (all but the pow windows and g2_add_step) are held so at every
-     size they are built for, besides the path's own launch; glv_dbl_add also on the complete addition's edge lanes
+     lane (all but the pow windows) are held so at every size they are
+     built for, besides the path's own launch; glv_dbl_add also on the
+     complete addition's edge lanes
      (acc, sel or both the identity, sel = 2acc, sel = -2acc) at the GLV
      ladder's width.
      Phase 6 adds every further lane count and input bound the paths
-     launched a kernel at, and fails if a launch of phases 4 to 6 is left
-     unheld.
+     launched a kernel at, and fails if a launch of phases 4 to 6 or 8 is
+     left unheld.
 4. The main path through the user entry points: `api.batch_sign` makes
    the signatures of `batch` distinct messages under `keys` keys (8 held
    against the host oracle), then `api.batch_verify(mode="adaptive")`
@@ -80,13 +82,14 @@ Phases, each of which exits non-zero on failure:
    exactly its index (fused check and stacked fallback, 130/46/176/130
    step-op launches), the independent tier with three tampered flagged
    exactly through the stacked form at 2 x `independent` lanes, and the
-   key check exact. Then every fused kernel is held against its plain body,
-   as in phase 3, at each further (lane count, input bounds) that the runs
-   of phases 4 to 6 launched it at (recorded by wrapping `fused.fused_op`
-   and `fused._launch`); every (lane count, input bounds) a path launched
-   must have been held so; the widths and bound sets held are printed for
-   the kernels over cios_wide but glv_dbl_add (expu_sq2, fq12_cyc_sq,
-   fq12_mul_line, fq12_sq, g2_dbl_step and the two pow windows).
+   key check exact. Then, after phase 8's runs, every fused kernel is held
+   against its plain body, as in phase 3, at each further (lane count,
+   input bounds) that the runs of phases 4 to 6 and 8 launched it at
+   (recorded by wrapping `fused.fused_op` and `fused._launch`); every
+   (lane count, input bounds) a path launched must have been held so; the
+   widths and bound sets held are printed for the kernels over cios_wide
+   but glv_dbl_add (expu_sq2, fq12_cyc_sq, fq12_mul_line, fq12_sq,
+   g2_dbl_step, g2_add_step and the two pow windows).
 7. Times on a warm repeat (CUDA events), in both configurations: per stage
    (the weights stage also split into the GLV ladders and the signature
    tree-sum, the final exponentiation into its easy part, one exp_u, the
@@ -104,19 +107,41 @@ Phases, each of which exits non-zero on failure:
    widths and launch counts; ms per launch (50 back to back, the better of
    two passes over the sizes) of every instantiation of the lane-
    cooperative kernels (the `coop_sweep` line): the Miller, exp_u and
-   Fq12 bodies and the G2 doubling step at 1 lane, 2, 4, 8 and 15 lanes per
-   SM, `independent` and batch + 1 lanes, the three scan-loop kernels
-   (fq12_mul_line, fq12_sq, g2_dbl_step) also at every lane count the phase
-   6 runs launched them at (2 x `independent`, the tampered batch's fused
-   check and stacked fallback); glv_dbl_add at 1 lane, 2 lanes per SM, `independent`,
-   batch + 1 and 2 x batch lanes; at one lane also each size's device time
-   under torch.profiler.
+   Fq12 bodies and the G2 steps at 1 lane, 2, 4, 8 and 15 lanes per SM,
+   `independent` and batch + 1 lanes, the four scan-loop kernels
+   (fq12_mul_line, fq12_sq, g2_dbl_step, g2_add_step) also at every lane
+   count the phase 6 runs launched them at (2 x `independent`, the tampered
+   batch's fused check and stacked fallback); glv_dbl_add at 1 lane, 2
+   lanes per SM, `independent`, batch + 1 and 2 x batch lanes; at one lane
+   also each size's device time under torch.profiler. The busy shares count
+   the profiler's kernel rows alone.
+8. BASELINE config 5, `bench.py --chunks` (`bench_fused_chunked`): the
+   chunked fused check, `dist/batch_verify.py:verify_batch_fused_chunked`,
+   over `chunked` (131,072: config 5's 1,048,576 cut to 16 chunks for the
+   script's time) tuples in chunks of 8,192, config 5's own (half the
+   batch below 16,384 tuples, for a rehearsal at a few tuples). The
+   fixture is made on the card as bench.py makes it: messages
+   b"bench1m-%08d" % i, K=32 hash candidates (every message must hit),
+   sk_i = ((0x1234567 + 977 i) mod 2^30) | 1, the signatures by
+   `curve/g1.scalar_mul` of the hash points and the public keys by
+   `curve/g2.scalar_mul` of the generator, 32-bit ladders, then affine;
+   8 tuples of the first and last chunks are held against the host oracle.
+   With 128-bit GLV weights the check must accept, with exactly
+   `chunked_launches` fused launches (16 x each chunk's points and Miller
+   stages, 15 one-lane fq12_mul folds, one final exponentiation) and some
+   montmul; with the last chunk's last signature swapped it must reject; a
+   chunk that does not divide the batch must raise InvalidLengthError. Its
+   runs are recorded for phase 6's hold. Times (CUDA events, warm): the
+   fixture's seconds, each chunk's ms (first, median, last), the final
+   exponentiation, end to end, verifies/s, and the device memory the
+   check takes beyond its inputs.
 
 It prints a kernels JSON line with every fused kernel on the path that
 launches it (the lane-cooperative ones with their G at each width the
-path runs them, `groups`), each with that path's name and launch count (`adaptive`; the
-two-pair bodies `independent`; fq12_sq and the three step ops
-`adaptive_no_unroll`), the shared kernels' rows for the independent path on
+path runs them, `groups`), each with that path's name and launch count
+(`adaptive`; the two-pair bodies `independent`; fq12_sq and the three step
+ops `adaptive_no_unroll`) and its launches in phase 8's chunked run
+(`chunked_launches`), the shared kernels' rows for the independent path on
 the line before the card's, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -153,6 +178,54 @@ MAIN_PATH_LAUNCHES = {"miller_dbl_body": 65, "miller_add_body": 23,
                       "expu_step": 69, "expu_sq2": 24, "glv_dbl_add": 64,
                       "el_pow_step_mul": 68 + 2 * 66,
                       "el_pow_step_sq": 15 + 2 * 18}
+# the same batch by stage, as the chunked check (phase 8) runs them: the
+# hash's square root; per chunk, the points stage (64 ladder steps, the
+# batched to_affine's inversion) and the Miller stage (65 + 23 digits, the
+# product tree over its rows: `tree_launches`); once, the final
+# exponentiation (three exp_u, fq12_inv's inversion, the easy part's 2,
+# the exp_u tables' 3 and the hard part's 13 products, the tables' 3 and
+# the hard part's 4 cyclotomic squares)
+HASH_LAUNCHES = {"el_pow_step_mul": 68, "el_pow_step_sq": 15}
+CHUNK_STAGE_LAUNCHES = {"glv_dbl_add": 64, "el_pow_step_mul": 66,
+                        "el_pow_step_sq": 18, "miller_dbl_body": 65,
+                        "miller_add_body": 23}
+FINAL_EXP_LAUNCHES = {"expu_step": 69, "expu_sq2": 24, "el_pow_step_mul": 66,
+                      "el_pow_step_sq": 18, "fq12_mul": 18, "fq12_cyc_sq": 7}
+
+
+def tree_launches(rows: int) -> int:
+    """fq12_mul launches of the Fq12 product tree over `rows` rows (an odd
+    row rides along): 14 over the 8,193 Miller rows of 8,192 tuples."""
+    n = 0
+    while rows > 1:
+        rows, n = rows - rows // 2, n + 1
+    return n
+
+
+def staged(*tables) -> dict:
+    out = {}
+    for t in tables:
+        for k, v in t.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+assert {k: v for k, v in staged(HASH_LAUNCHES, CHUNK_STAGE_LAUNCHES,
+                                FINAL_EXP_LAUNCHES).items()
+        if k in MAIN_PATH_LAUNCHES} == MAIN_PATH_LAUNCHES
+
+
+CONFIG5_CHUNK = 8192  # bench.py's config 5: 1,048,576 tuples in 128 chunks
+
+
+def chunked_launches(n_chunks: int, chunk: int) -> dict:
+    """Every fused kernel's launches in `verify_batch_fused_chunked` over
+    n_chunks chunks of `chunk` tuples: each chunk's stages, one one-lane
+    fq12_mul fold per chunk after the first, one final exponentiation;
+    0 for the kernels the fused tier never runs."""
+    per_chunk = {**CHUNK_STAGE_LAUNCHES, "fq12_mul": tree_launches(chunk + 1)}
+    return staged({k: n_chunks * v for k, v in per_chunk.items()},
+                  {"fq12_mul": n_chunks - 1}, FINAL_EXP_LAUNCHES)
 # the independent tier on the card (pair2): the same schedule through the
 # two-pair bodies, then the final exponentiation at one lane per tuple;
 # the square root and one inversion, no GLV ladder
@@ -280,7 +353,15 @@ def main() -> int:
                          "--batch)")
     ap.add_argument("--keys", type=int, default=16)
     ap.add_argument("--seed", type=int, default=2026)
+    ap.add_argument("--chunked", type=int, default=16 * CONFIG5_CHUNK,
+                    help="tuples of the chunked config-5 phase, in chunks of "
+                         "8,192 (BASELINE config 5 runs 1,048,576)")
     args = ap.parse_args()
+    chunk = min(CONFIG5_CHUNK, args.chunked // 2)
+    if chunk < 1 or args.chunked % chunk:
+        print(f"chip_smoke: --chunked must be a multiple of {CONFIG5_CHUNK}",
+              file=sys.stderr)
+        return 2
 
     import numpy as np
     import torch
@@ -293,12 +374,16 @@ def main() -> int:
         from bn254_tpu_torch import api
         from bn254_tpu_torch import config as C
         from bn254_tpu_torch.constants import MONT_R, NLIMBS, P, R
+        from bn254_tpu_torch.curve import g1 as DG1
+        from bn254_tpu_torch.curve import g2 as DG2
         from bn254_tpu_torch.curve import jacobian as J
         from bn254_tpu_torch.curve.ops import FqOps
         from bn254_tpu_torch.dist import batch_verify as BV
+        from bn254_tpu_torch.errors import InvalidLengthError
         from bn254_tpu_torch.fields import limbs as L
         from bn254_tpu_torch.fields import tower as T
         from bn254_tpu_torch.hash.tai import hash_to_g1
+        from bn254_tpu_torch.hash import tai_batch as TB
         from bn254_tpu_torch.hash.tai_batch import hash_to_g1_device
         from bn254_tpu_torch.host import curve as HC
         from bn254_tpu_torch.kernels import build
@@ -360,7 +445,8 @@ def main() -> int:
                            "coop_kernel<CoopFq12CycSq",
                            "coop_kernel<CoopFq12MulLine",
                            "coop_kernel<CoopFq12Sq",
-                           "coop_kernel<CoopG2DblStep")))):
+                           "coop_kernel<CoopG2DblStep",
+                           "coop_kernel<CoopG2AddStep")))):
         print(f"build: sass: {line}")
 
     # -- 3. kernel vs plain ----------------------------------------------------
@@ -846,8 +932,123 @@ def main() -> int:
         print(f"batch_check_public_keys, {nu}: {n_pk} key pairs, exactly "
               f"{bad_pk} mismatched, through the stacked form")
 
+    # -- 8. the chunked config-5 path ----------------------------------------------
+    # bench.py's config 5 (`bench_fused_chunked`): 1,048,576 tuples in chunks
+    # of 8,192 on one chip, cut to --chunked tuples; the fixture made on the
+    # card as bench.py makes it (K=32 hash candidates, sk_i small odd ints,
+    # signatures and public keys by the device ladders, 32 bits)
+    NC, CH = args.chunked, chunk
+    n_ch, K5, slab = NC // CH, 32, 8 * CH
+
+    def cat_els(els):
+        return L.El(torch.cat([e.arr for e in els], dim=-1),
+                    max(e.vmax for e in els), max(e.lmax for e in els))
+
+    def host_ints(e, idx):
+        return [int(v) for v in L.to_ints(L.from_mont(
+            L.El(e.arr[:, idx], e.vmax, e.lmax)))]
+
+    chunked_widths = {}  # the (lanes, bounds) of this phase's launches
+    with torch.inference_mode(), \
+            launches_recorded(run_launches, chunked_widths):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        msgs5 = [b"bench1m-%08d" % i for i in range(NC)]
+        blocks5, ctr_word, ctr_shift = TB.prepare_blocks_host(msgs5)
+        blocks5 = torch.from_numpy(blocks5.astype(np.int64)).to(dev)
+        sk5 = [((0x1234567 + 977 * i) % (1 << 30)) | 1 for i in range(NC)]
+        cols = []  # per slab: hx, hy, sx, sy, pk x (Fq2), pk y (Fq2)
+        hash_ms = []  # each chunk's hash (bench.py's timed region has it)
+        for off in range(0, NC, slab):
+            hs = []
+            for c in range(off, min(off + slab, NC), CH):
+                (hx, hy, found, _), ms = events_ms(
+                    torch, lambda: TB.hash_to_g1_batch(
+                        blocks5[c:c + CH], ctr_word, ctr_shift, K5))
+                hash_ms.append(ms)
+                if not bool(found.all()):
+                    fail(f"chunked fixture: a hash miss in chunk {c // CH}")
+                hs.append((hx, hy))
+            hx, hy = (cat_els([h[i] for h in hs]) for i in range(2))
+            n = hx.batch_shape[-1]
+            sk = CV.scalars_to_device(sk5[off:off + n], dev)
+            sx, sy, inf_s = DG1.to_affine(DG1.scalar_mul(
+                J.JPoint(hx, hy, L.mont_one((n,), dev)), sk, 32))
+            qx, qy, inf_q = DG2.to_affine(DG2.scalar_mul(
+                DG2.generator((n,), dev), sk, 32))
+            if bool(inf_s.any()) or bool(inf_q.any()):
+                fail("chunked fixture: an identity signature or key")
+            cols.append((hx, hy, sx, sy, qx, qy))
+        hx5, hy5, sx5, sy5 = (cat_els([c[i] for c in cols]) for i in range(4))
+        qx5, qy5 = (T.Fq2(cat_els([c[i].c0 for c in cols]),
+                          cat_els([c[i].c1 for c in cols])) for i in (4, 5))
+        del cols, hs, blocks5
+        torch.cuda.synchronize()
+        fixture_s = time.perf_counter() - t0
+        sample = [0, 1, CH // 2, CH - 1, NC - CH, NC - CH + 1, NC - 2, NC - 1]
+        got_h = list(zip(host_ints(hx5, sample), host_ints(hy5, sample)))
+        got_s = list(zip(host_ints(sx5, sample), host_ints(sy5, sample)))
+        got_q = list(zip(zip(host_ints(qx5.c0, sample),
+                             host_ints(qx5.c1, sample)),
+                         zip(host_ints(qy5.c0, sample),
+                             host_ints(qy5.c1, sample))))
+        for j, i in enumerate(sample):
+            h = hash_to_g1(msgs5[i])
+            if (got_h[j] != HC.g1_to_affine(h)
+                    or got_s[j] != HC.g1_to_affine(HC.g1_mul(h, sk5[i]))
+                    or got_q[j] != HC.g2_to_affine(
+                        HC.g2_mul(HC.G2_ONE, sk5[i]))):
+                fail(f"chunked fixture: tuple {i} disagrees with the host "
+                     "oracle")
+        print(f"chunked fixture: {NC} tuples ({n_ch} chunks of {CH}; "
+              f"config 5's 1,048,576 cut to {NC}) made on the card in "
+              f"{fixture_s:.2f} s, K={K5}; tuples {sample} agree with the "
+              "host oracle")
+
+        inputs5 = (hx5, hy5, sx5, sy5, qx5, qy5)
+        w5 = BV.random_weights(NC, 128, dev)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        held_mb = torch.cuda.memory_allocated() / 2**20
+        t0 = time.perf_counter()
+        ok5 = bool(BV.verify_batch_fused_chunked(*inputs5, w5, chunk=CH))
+        chunked_cold_s = time.perf_counter() - t0
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20 - held_mb
+        chunk_launches = {**FK.launches, "montmul": MK.launches}
+        want5 = {**dict.fromkeys(FK.KERNELS, 0),
+                 **chunked_launches(n_ch, CH)}
+        if {k: chunk_launches[k] for k in FK.KERNELS} != want5 \
+                or not MK.launches:
+            fail(f"chunked run: launches {json.dumps(chunk_launches)}, "
+                 f"want {json.dumps(want5)} and some montmul")
+        if not ok5:
+            fail(f"the chunked check rejected {NC} valid tuples")
+        print(f"verify chunked B={NC} in {n_ch} chunks of {CH} (128-bit GLV "
+              f"weights): accepts, {chunked_cold_s:.2f} s cold, "
+              f"{peak_mb:.1f} MiB of device memory beyond the "
+              f"{held_mb:.1f} MiB held, launches "
+              + json.dumps(chunk_launches))
+
+        bad_sx, bad_sy = (L.El(e.arr.clone(), e.vmax, e.lmax)
+                          for e in (sx5, sy5))
+        bad_sx.arr[:, -1], bad_sy.arr[:, -1] = sx5.arr[:, -2], sy5.arr[:, -2]
+        if bool(BV.verify_batch_fused_chunked(
+                hx5, hy5, bad_sx, bad_sy, qx5, qy5, w5, chunk=CH)):
+            fail("the chunked check accepted a batch with a signature of "
+                 "its last chunk swapped")
+        del bad_sx, bad_sy
+        bad_chunk = next(c for c in (CH + 1, CH - 1, 3 * CH // 2) if NC % c)
+        try:
+            BV.verify_batch_fused_chunked(*inputs5, w5, chunk=bad_chunk)
+            fail(f"a chunk of {bad_chunk} for {NC} tuples did not raise")
+        except InvalidLengthError:
+            pass
+        print(f"verify chunked B={NC}: rejects the batch with the last "
+              f"chunk's last signature swapped; a chunk of {bad_chunk} "
+              "raises InvalidLengthError")
+
     # every fused kernel against its plain body at each further (lane count,
-    # input bounds) the runs of phases 4 to 6 launched it at
+    # input bounds) the runs of phases 4 to 6 and 8 launched it at
     with torch.inference_mode():
         for key, seen in run_launches.items():
             for n, bounds in sorted(seen - checked[key]):
@@ -861,10 +1062,74 @@ def main() -> int:
     if unheld:
         fail(f"launches never held against the plain bodies: {unheld}")
     for key in ("expu_sq2", "fq12_cyc_sq", "fq12_mul_line", "fq12_sq",
-                "g2_dbl_step", "el_pow_step_mul", "el_pow_step_sq"):
+                "g2_dbl_step", "g2_add_step", "el_pow_step_mul",
+                "el_pow_step_sq"):
         print(f"held: {key} at every (lane count, input bounds) the paths "
               f"launched it at, lanes {lanes(run_launches)[key]}, "
               f"{len(run_launches[key])} bound sets")
+
+    # the chunked phase's times on a warm repeat (CUDA events): each chunk
+    # from its points stage to the end of its Miller stage, the final
+    # exponentiation with is_one's input, and the whole call
+    marks = {"chunk": [], "final_exp": []}
+
+    @contextlib.contextmanager
+    def chunk_events():
+        points, reduce, final_exp = (BV._fused_points, BV._miller_reduce,
+                                     FE.final_exp)
+
+        def event():
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+
+        def timed_points(*a):
+            marks["chunk"].append([event()])
+            return points(*a)
+
+        def timed_reduce(*a):
+            out = reduce(*a)
+            marks["chunk"][-1].append(event())
+            return out
+
+        def timed_final_exp(f):
+            start = event()
+            out = final_exp(f)
+            marks["final_exp"].append((start, event()))
+            return out
+
+        BV._fused_points, BV._miller_reduce, FE.final_exp = (
+            timed_points, timed_reduce, timed_final_exp)
+        try:
+            yield
+        finally:
+            BV._fused_points, BV._miller_reduce, FE.final_exp = (
+                points, reduce, final_exp)
+
+    reset_counts()
+    with chunk_events():
+        ok, e2e5_ms = events_ms(torch, lambda: BV.verify_batch_fused_chunked(
+            *inputs5, w5, chunk=CH))
+    if not bool(ok) or {k: FK.launches[k] for k in FK.KERNELS} != want5:
+        fail("the warm chunked run rejected the batch or launched "
+             f"{json.dumps(FK.launches)}")
+    chunk_ms = [a.elapsed_time(b) for a, b in marks["chunk"]]
+    chunked_times = {
+        "batch": NC, "chunks": n_ch, "chunk": CH,
+        "cut": f"config 5's 128 chunks (1,048,576 tuples) cut to {n_ch}",
+        "fixture_s": fixture_s, "fixture_hash_ms_median": float(
+            np.median(hash_ms)), "cold_s": chunked_cold_s,
+        "chunk_ms_first": chunk_ms[0],
+        "chunk_ms_median": float(np.median(chunk_ms)),
+        "chunk_ms_last": chunk_ms[-1],
+        "final_exp_ms": marks["final_exp"][0][0].elapsed_time(
+            marks["final_exp"][0][1]),
+        "e2e_ms": e2e5_ms, "verifies_per_s": NC / (e2e5_ms / 1e3),
+        "peak_mib_beyond_inputs": peak_mb, "launches": chunk_launches}
+    print(f"chunked config 5 on {card} (warm, CUDA events): "
+          + json.dumps({k: round(v, 4) if isinstance(v, float) else v
+                        for k, v in chunked_times.items()}))
+    del inputs5, hx5, hy5, sx5, sy5, qx5, qy5, w5
 
     # -- 7. times on a warm repeat ---------------------------------------------------
     def stage_times(tag, check_warm, **extra):
@@ -967,9 +1232,12 @@ def main() -> int:
                                      ProfilerActivity.CUDA]) as prof:
                 fn()
                 torch.cuda.synchronize()
+            # the kernel rows alone: an aten row's self device time is
+            # its kernels' time, which their own rows count already
             dev_us = sum(getattr(e, "self_device_time_total",
                                  getattr(e, "self_cuda_time_total", 0))
-                         for e in prof.key_averages())
+                         for e in prof.key_averages()
+                         if str(e.device_type).endswith("CUDA"))
             n_ops = sum(e.count for e in prof.key_averages()
                         if e.key.startswith("aten::"))
             device_ms = dev_us / 1e3 if dev_us else None
@@ -1035,7 +1303,7 @@ def main() -> int:
     sweep_widths = {**dict.fromkeys(FK.COOP, (1, 2 * sms, 4 * sms, 8 * sms,
                                               15 * sms, NI, B + 1)),
                     "glv_dbl_add": (1, 2 * sms, NI, B + 1, 2 * B)}
-    for key in ("fq12_mul_line", "fq12_sq", "g2_dbl_step"):
+    for key in ("fq12_mul_line", "fq12_sq", "g2_dbl_step", "g2_add_step"):
         sweep_widths[key] += tuple(lanes(scan_widths)[key])
     coop_sweep = []
     with torch.inference_mode():
@@ -1090,7 +1358,7 @@ def main() -> int:
         "max_abs_err": max_err["montmul"],
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None,
+        "library_ms": None, "chunked_launches": chunk_launches["montmul"],
     })
     def launch_ms(key, args_):
         """ms per launch of the bare kernel on these inputs, warm."""
@@ -1128,7 +1396,7 @@ def main() -> int:
             "launches": n_launches, "max_abs_err": max_err[key], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
+            "library_ms": None, "chunked_launches": chunk_launches[key],
         }
         if key in FK.INSTANCES:  # G at each width it runs
             row["groups"] = {str(w): FK.coop_group(key, w, sms)

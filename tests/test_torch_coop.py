@@ -1,7 +1,7 @@
 """The lane-cooperative kernels (`miller_dbl_body`, `expu_step`,
 `miller_dbl_body2`, `miller_add_body2`, `fq12_mul`, `miller_add_body`,
 `glv_dbl_add`, `expu_sq2`, `fq12_cyc_sq`, `fq12_mul_line`, `fq12_sq`,
-`g2_dbl_step`) off the card.
+`g2_dbl_step`, `g2_add_step`) off the card.
 
 Their level schedules (`kernels/coop_schedule.py`, generated into
 `coop_schedule.cuh`) are checked twice:
@@ -10,10 +10,9 @@ Their level schedules (`kernels/coop_schedule.py`, generated into
   products; `glv_dbl_add`'s masked selects as SEL chains), each level
   reading only slots that earlier levels wrote and writing no slot another
   op of the level reads; every product of the formula computed exactly
-  once (117, 90, 160, 123, 54, 80, 30, 36, 18, 39, 36 and 42, plus one
-  load per input El, no two products of the same operands); every output
-  written
-  once, equal to the plain body by value; each schedule's tables byte for
+  once (117, 90, 160, 123, 54, 80, 30, 36, 18, 39, 36, 42 and 41, plus
+  one load per input El, no two products of the same operands); every
+  output written once, equal to the plain body by value; each schedule's tables byte for
   byte as they were measured on the card;
 * through the g++ build of `fused.cu` (`-DBN254_CHECK_BOUNDS`), whose host
   launchers run the same `coop_op` over each level with the group's
@@ -25,8 +24,9 @@ Their level schedules (`kernels/coop_schedule.py`, generated into
   second factor, `miller_add_body`'s G1 point); the two cyclotomic
   squaring kernels on easy-part outputs against the JAX package's generic
   Fq12 square; the sparse line fold against the JAX package's
-  `_fq12_mul_line_impl`; and the Fq12 square and the G2 doubling step
-  against its `_fq12_sq_impl` and `_dbl_step_impl`.
+  `_fq12_mul_line_impl`; and the Fq12 square and the G2 doubling and
+  addition steps against its `_fq12_sq_impl`, `_dbl_step_impl` and
+  `_add_step_impl`.
 """
 
 import ctypes
@@ -112,6 +112,8 @@ TABLE_DIGESTS = {
         "8bb3ac93226d2f23450b1fe419e6e86fc8643c407425189996f0a97b56c4ecdc",
     "g2_dbl_step":
         "74b581db375eeea47f9de0340ceac5d0cb23e8274f82a43462a16bc43d4bff53",
+    "g2_add_step":
+        "596309849e39f8620c182d9b10e5a362bd9830b295dfff2e563c0e236d3853e8",
 }
 
 
@@ -408,3 +410,14 @@ def test_host_square_and_doubling_match_jax(host_lib, key):
             next(els)),
     }
     check_host_against_jax(host_lib, key, 41, bodies[key])
+
+
+def test_host_add_step_matches_jax(host_lib):
+    """`g2_add_step` at every G against the JAX package's `_add_step_impl`
+    (T + Q, then the chord line) on the same numpy inputs at the pins."""
+    from bn254_tpu.pairing import miller as JM
+
+    check_host_against_jax(host_lib, "g2_add_step", 43, lambda els: (
+        JM._add_step_impl(
+            JM.ProjG2(jax_fq2(els), jax_fq2(els), jax_fq2(els)),
+            jax_fq2(els), jax_fq2(els), next(els), next(els))))
