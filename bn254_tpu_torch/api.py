@@ -1,15 +1,14 @@
-"""High-level batched device API: sign / verify / key consistency.
+"""High-level batched device API: sign / verify / aggregate / key consistency.
 
 Counterpart of `bn254_tpu/api.py` (`batch_sign`, `batch_verify`,
-`batch_check_public_keys`). Bridges host points (Python ints) and the device
-pipeline (Montgomery limb tensors). The entry points run on the CUDA card
-unless the caller passes `device="cpu"`; with no card and no `device=` they
-raise.
+`aggregate_signatures`, `aggregate_public_keys`, `batch_check_public_keys`).
+Bridges protocol objects (`protocol/types.py`: host points as Python ints)
+and the device pipeline (Montgomery limb tensors). The device entry points
+run on the CUDA card unless the caller passes `device="cpu"`; with no card
+and no `device=` they raise. The two aggregations run on the host.
 """
 
 from __future__ import annotations
-
-from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -22,13 +21,8 @@ from .fields import tower as T
 from .hash.tai_batch import hash_to_g1_device
 from .host import curve as HC
 from .pairing import pairing as DP
+from .protocol.types import PublicKey, Signature
 from .utils import convert as CV
-
-
-class Signature(NamedTuple):
-    """A BLS signature: a host Jacobian G1 point (X, Y, Z ints)."""
-
-    point: tuple
 
 
 def resolve_device(device=None) -> torch.device:
@@ -65,9 +59,9 @@ def batch_sign(messages: list[bytes], private_keys, config=None,
                device=None) -> list[Signature]:
     """Sign a batch of messages on the device: [sk_i] H(m_i).
 
-    private_keys: ints or objects with an int `.scalar`. Device pipeline:
-    batched SHA-256 try-and-increment hash, a batched 256-step scalar
-    ladder and one batched affine conversion.
+    private_keys: PrivateKeys, or ints. Device pipeline: batched SHA-256
+    try-and-increment hash, a batched 256-step scalar ladder and one
+    batched affine conversion. Bit-exact with `ECDSA.sign` per message.
     """
     cfg = _config(config)
     if len(messages) != len(private_keys):
@@ -89,13 +83,14 @@ def batch_verify(messages: list[bytes], signatures, public_keys,
                  weights=None):
     """Verify a batch of (message, signature, public key) tuples.
 
-    signatures / public_keys: objects with a `.point` host Jacobian point
-    (G1 and G2). mode="independent": per-tuple bools (np.ndarray), each
-    tuple checked on its own. mode="fused": ONE combined check with random
-    linear-combination weights and a single shared final exponentiation
-    (returns a bool: all valid); a forged tuple passes with probability
-    ~2^-rlc_bits. mode="adaptive": per-tuple bools at the fused cost when
-    every tuple is valid, with the independent tier as the fallback.
+    signatures / public_keys: Signatures and PublicKeys (any object with a
+    `.point` host Jacobian point, G1 and G2). mode="independent": per-tuple
+    bools (np.ndarray), each tuple checked on its own. mode="fused": ONE
+    combined check with random linear-combination weights and a single
+    shared final exponentiation (returns a bool: all valid); a forged tuple
+    passes with probability ~2^-rlc_bits. mode="adaptive": per-tuple bools
+    at the fused cost when every tuple is valid, with the independent tier
+    as the fallback.
     weights: explicit RLC weights (GlvWeights, PlainWeights or ints);
     None draws fresh cryptographic ones per `config.glv_weights`.
     """
@@ -124,16 +119,33 @@ def batch_verify(messages: list[bytes], signatures, public_keys,
                                       nbits=cfg.rlc_bits))
 
 
+def aggregate_signatures(signatures) -> Signature:
+    """Aggregate signatures: their sum in G1 (host arithmetic)."""
+    acc = HC.G1_IDENTITY
+    for s in signatures:
+        acc = HC.g1_add(acc, s.point)
+    return Signature(acc)
+
+
+def aggregate_public_keys(public_keys) -> PublicKey:
+    """Aggregate public keys: their sum in G2 (host arithmetic)."""
+    acc = HC.G2_IDENTITY
+    for k in public_keys:
+        acc = HC.g2_add(acc, k.point)
+    return PublicKey(acc)
+
+
 @torch.inference_mode()
 def batch_check_public_keys(public_keys_g2, public_keys_g1,
                             device=None) -> np.ndarray:
     """Batched G2 <-> G1 key-consistency check: per pair,
     e(G1::one, PK2_i) * e(-PK1_i, G2::one) == 1.
 
-    public_keys_g2 / public_keys_g1: objects with a `.point` host Jacobian
-    point (G2 and G1). Returns np.ndarray of bool, one per pair. On the card
-    (`batch_verify._use_pair2`) the shared-squaring two-pair Miller loop
-    with +G2::one's precomputed lines; otherwise the two pairs stacked.
+    public_keys_g2 / public_keys_g1: PublicKeys and PublicKeyG1s (objects
+    with a `.point` host Jacobian point, G2 and G1). Returns np.ndarray of
+    bool, one per pair. On the card (`batch_verify._use_pair2`) the
+    shared-squaring two-pair Miller loop with +G2::one's precomputed lines;
+    otherwise the two pairs stacked.
     """
     n = len(public_keys_g2)
     if len(public_keys_g1) != n:

@@ -150,3 +150,13 @@ def to_affine(ops, p: JPoint):
     y = ops.mul(ops.mul(p.y, zinv), zinv2)
     zero = ops.zero(bs, dev)
     return ops.select(inf, zero, x), ops.select(inf, zero, y), inf
+
+
+def from_affine(ops, x, y, inf_mask=None) -> JPoint:
+    """Affine coords (and an optional identity mask) -> Jacobian, Z = 1."""
+    bs = ops.batch_shape(x)
+    dev = ops.device(x)
+    z = ops.one(bs, dev)
+    if inf_mask is not None:
+        z = ops.select(inf_mask, ops.zero(bs, dev), z)
+    return JPoint(x, y, z)

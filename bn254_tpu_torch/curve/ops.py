@@ -26,10 +26,7 @@ class FqOps:
     select = staticmethod(L.select)
     zero = staticmethod(L.mont_zero)
     one = staticmethod(L.mont_one)
-
-    @staticmethod
-    def double(a):
-        return L.add_mod(a, a)
+    double = staticmethod(L.double_mod)
 
     @staticmethod
     def batch_shape(a):

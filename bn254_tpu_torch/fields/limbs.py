@@ -158,6 +158,11 @@ def to_ints(a) -> np.ndarray:
     return np.tensordot(weights, host, axes=(0, 0))
 
 
+def to_int(a) -> int:
+    """The first value of an El (or raw limbs) as a Python int."""
+    return int(to_ints(a).reshape(-1)[0])
+
+
 @functools.lru_cache(maxsize=None)
 def _const_arr(x: int, device: torch.device) -> torch.Tensor:
     # shared by every caller: no function here writes into an input
@@ -235,6 +240,10 @@ def add_mod(a: El, b: El) -> El:
     out = El(aa + ba, a.vmax + b.vmax, a.lmax + b.lmax)
     assert out.lmax <= _COL_LIMIT and out.vmax <= CAPACITY
     return out
+
+
+def double_mod(a: El) -> El:
+    return add_mod(a, a)
 
 
 def _sub_offset(bound: int, device) -> tuple[int, El]:

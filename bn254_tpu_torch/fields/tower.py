@@ -129,6 +129,10 @@ def fq6_one(batch_shape=(), device="cpu") -> Fq6:
                fq2_zero(batch_shape, device))
 
 
+def fq12_zero(batch_shape=(), device="cpu") -> Fq12:
+    return Fq12(fq6_zero(batch_shape, device), fq6_zero(batch_shape, device))
+
+
 def fq12_one(batch_shape=(), device="cpu") -> Fq12:
     return Fq12(fq6_one(batch_shape, device), fq6_zero(batch_shape, device))
 
@@ -300,6 +304,12 @@ def fq6_mul_by_v(a: Fq6) -> Fq6:
     return Fq6(fq2_mul_xi(a.c2), a.c0, a.c1)
 
 
+def fq6_mul_fq2(a: Fq6, s: Fq2) -> Fq6:
+    st = fq2_stack([s, s, s])
+    p0, p1, p2 = fq2_unstack(fq2_mul(fq2_stack([a.c0, a.c1, a.c2]), st), 3)
+    return Fq6(p0, p1, p2)
+
+
 def fq6_inv(a: Fq6) -> Fq6:
     c0 = fq2_sub(fq2_sq(a.c0), fq2_mul_xi(fq2_mul(a.c1, a.c2)))
     c1 = fq2_sub(fq2_mul_xi(fq2_sq(a.c2)), fq2_mul(a.c0, a.c1))
@@ -329,6 +339,14 @@ def fq6_select(mask, t: Fq6, f: Fq6) -> Fq6:
 # ---------------------------------------------------------------------------
 # Fq12 arithmetic
 # ---------------------------------------------------------------------------
+
+
+def fq12_add(a: Fq12, b: Fq12) -> Fq12:
+    return Fq12(fq6_add(a.c0, b.c0), fq6_add(a.c1, b.c1))
+
+
+def fq12_sub(a: Fq12, b: Fq12) -> Fq12:
+    return Fq12(fq6_sub(a.c0, b.c0), fq6_sub(a.c1, b.c1))
 
 
 def fq12_mul(a: Fq12, b: Fq12) -> Fq12:
@@ -434,6 +452,10 @@ def fq12_conj(a: Fq12) -> Fq12:
     return Fq12(a.c0, fq6_neg(a.c1))
 
 
+def fq12_neg(a: Fq12) -> Fq12:
+    return Fq12(fq6_neg(a.c0), fq6_neg(a.c1))
+
+
 def fq12_inv(a: Fq12) -> Fq12:
     t = fq6_sub(fq6_sq(a.c0), fq6_mul_by_v(fq6_sq(a.c1)))
     t_inv = fq6_inv(t)
@@ -493,6 +515,28 @@ def fq12_frob(a: Fq12, k: int) -> Fq12:
 # ---------------------------------------------------------------------------
 # host <-> device conversion
 # ---------------------------------------------------------------------------
+
+
+def fq2_from_ints(vals, device="cpu") -> Fq2:
+    """(c0, c1) host ints (or nested lists of them) -> Montgomery Fq2."""
+    c0, c1 = vals
+    return Fq2(L.to_mont(L.from_ints(c0, device=device)),
+               L.to_mont(L.from_ints(c1, device=device)))
+
+
+def fq2_to_ints(a: Fq2):
+    return (L.to_ints(L.from_mont(a.c0)), L.to_ints(L.from_mont(a.c1)))
+
+
+def fq12_from_host(h, batch_shape=(), device="cpu") -> Fq12:
+    """Host oracle Fq12 tuple -> device Fq12 (broadcast to batch_shape)."""
+
+    def conv(x):
+        return L.bcast_to(L.to_mont(L.from_ints(x, device=device)),
+                          batch_shape)
+
+    return Fq12(*[Fq6(*[Fq2(conv(c[0]), conv(c[1])) for c in six])
+                  for six in h])
 
 
 def fq12_to_host(a: Fq12):

@@ -25,6 +25,16 @@ def pairing(px, py, qx, qy, inf_mask=None) -> Fq12:
     return FE.final_exp(M.miller_loop(px, py, qx, qy, inf_mask))
 
 
+def miller_product(px, py, qx, qy, pair_axis: int = 0) -> Fq12:
+    """Miller values for a batch of pairs, multiplied along `pair_axis`.
+
+    Inputs carry a leading 'pair' batch dim at tensor axis 1 (the first
+    batch dim); the product reduces it.
+    """
+    f = M.miller_loop(px, py, qx, qy)
+    return fq12_reduce_mul(f, axis=pair_axis)
+
+
 def _cat_els(a, b, dim: int):
     """El-aware concat with merged (max) static bounds."""
     if isinstance(a, L.El):

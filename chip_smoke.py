@@ -43,8 +43,8 @@ Phases, each of which exits non-zero on failure:
      (acc, sel or both the identity, sel = 2acc, sel = -2acc) at the GLV
      ladder's width.
      Phase 6 adds every further lane count and input bound the paths
-     launched a kernel at, and fails if a launch of phases 4 to 6 or 8 is
-     left unheld.
+     launched a kernel at, and fails if a launch of phases 4 to 6, 8 or 9
+     is left unheld.
 4. The main path through the user entry points: `api.batch_sign` makes
    the signatures of `batch` distinct messages under `keys` keys (8 held
    against the host oracle), then `api.batch_verify(mode="adaptive")`
@@ -82,9 +82,9 @@ Phases, each of which exits non-zero on failure:
    exactly its index (fused check and stacked fallback, 130/46/176/130
    step-op launches), the independent tier with three tampered flagged
    exactly through the stacked form at 2 x `independent` lanes, and the
-   key check exact. Then, after phase 8's runs, every fused kernel is held
+   key check exact. Then, after the runs of phases 8 and 9, every fused kernel is held
    against its plain body, as in phase 3, at each further (lane count,
-   input bounds) that the runs of phases 4 to 6 and 8 launched it at
+   input bounds) that the runs of phases 4 to 6, 8 and 9 launched it at
    (recorded by wrapping `fused.fused_op` and `fused._launch`); every
    (lane count, input bounds) a path launched must have been held so; the
    widths and bound sets held are printed for the kernels over cios_wide
@@ -135,13 +135,28 @@ Phases, each of which exits non-zero on failure:
    fixture's seconds, each chunk's ms (first, median, last), the final
    exponentiation, end to end, verifies/s, and the device memory the
    check takes beyond its inputs.
+9. The protocol layer and the CLI (`python -m bn254_tpu_torch`) on the
+   card. In this process: pubkey, sign, aggregate-pks, aggregate-sigs and
+   verify on the reference's two example keys (the aggregate accepted on
+   its message, rejected with rc 1 and FAIL on another) and hash-to-g1 of
+   "sample" (the reference's golden value); then batch-verify on 256 JSON
+   lines (16 keys, messages of three lengths, signed on the card by
+   `api.batch_sign`, 8 of them byte-equal to `ECDSA.sign`'s, three
+   signatures swapped) must exit 1 with FAIL on exactly those lines, its
+   launches exactly `cli_launch_faults`' table (the independent tier
+   through pair2, one square root per message length) and recorded for
+   phase 6's hold; its ms (CUDA events) and api.batch_verify's alone. Then
+   `python -m bn254_tpu_torch batch-verify` with no --device on 16 valid
+   lines (rc 0, 16 ok lines) and `examples/batch_verify_gpu.py 16` (rc 0),
+   each a process of its own, with their seconds.
 
 It prints a kernels JSON line with every fused kernel on the path that
 launches it (the lane-cooperative ones with their G at each width the
 path runs them, `groups`), each with that path's name and launch count
 (`adaptive`; the two-pair bodies `independent`; fq12_sq and the three step
 ops `adaptive_no_unroll`) and its launches in phase 8's chunked run
-(`chunked_launches`), the shared kernels' rows for the independent path on
+(`chunked_launches`) and in phase 9's CLI batch-verify
+(`cli_batch_verify_launches`), the shared kernels' rows for the independent path on
 the line before the card's, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -151,6 +166,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import inspect
+import io
 import json
 import pathlib
 import re
@@ -228,13 +244,22 @@ def chunked_launches(n_chunks: int, chunk: int) -> dict:
                   {"fq12_mul": n_chunks - 1}, FINAL_EXP_LAUNCHES)
 # the independent tier on the card (pair2): the same schedule through the
 # two-pair bodies, then the final exponentiation at one lane per tuple;
-# the square root and one inversion, no GLV ladder
+# one square root per message length (hash/tai_batch.py hashes each
+# length's bucket on its own) and one inversion, no GLV ladder
 PAIR2 = ("miller_dbl_body2", "miller_add_body2")
-INDEPENDENT_LAUNCHES = {"miller_dbl_body2": 65, "miller_add_body2": 23,
-                        "miller_dbl_body": 0, "miller_add_body": 0,
-                        "expu_step": 69, "expu_sq2": 24,
-                        "el_pow_step_mul": 68 + 66, "el_pow_step_sq": 15 + 18,
-                        "glv_dbl_add": 0}
+
+
+def independent_launches(n_lengths: int = 1) -> dict:
+    """The independent tier's fused launches over messages of `n_lengths`
+    distinct lengths."""
+    return {"miller_dbl_body2": 65, "miller_add_body2": 23,
+            "miller_dbl_body": 0, "miller_add_body": 0,
+            "expu_step": 69, "expu_sq2": 24,
+            "el_pow_step_mul": 68 * n_lengths + 66,
+            "el_pow_step_sq": 15 * n_lengths + 18, "glv_dbl_add": 0}
+
+
+INDEPENDENT_LAUNCHES = independent_launches(1)
 # config.unroll_static_loops=False: the scan-form Miller loop, one launch
 # per step op: 65 squares and doublings, 21 + 2 additions, a line fold after
 # each of the 88 steps; exp_u's scan form adds 2 x 31 cyclotomic squares and
@@ -248,6 +273,29 @@ UNROLLED_ONLY = ("miller_dbl_body", "miller_add_body", *PAIR2, "expu_step",
                  "glv_dbl_add")
 EXP_U_SCAN_EXTRA = {"fq12_cyc_sq": 3 * 62, "fq12_mul": 3 * 31}
 NOT_ON_MAIN_PATH = {"fq12_sq", *PAIR2, *SCAN_OPS}  # fq12_sq: inside bodies
+
+
+def cli_launch_faults(got: dict, n_lengths: int) -> list[str]:
+    """How the fused launch counts `got` of one `python -m bn254_tpu_torch
+    batch-verify` run (the independent tier through pair2) over messages of
+    `n_lengths` lengths differ from its table: exact counts for the kernels
+    of `independent_launches`, none of fq12_sq and the scan loop's step ops
+    (scan form only), some of every other kernel (fq12_mul, fq12_cyc_sq)."""
+    want = {**independent_launches(n_lengths),
+            **dict.fromkeys(("fq12_sq", *SCAN_OPS), 0)}
+    faults = [f"{k}: {got[k]} launches, want {v}" for k, v in want.items()
+              if got[k] != v]
+    return faults + [f"{k}: no launch" for k in got
+                     if k not in want and not got[k]]
+
+
+# phase 9: the reference's two example keys (examples/bn254.rs), the golden
+# hash-to-G1 of "sample" (reference hash_test.rs), the CLI batch's lengths
+CLI_KEYS = ("c9afa9d845ba75166b5c215767b1d6934e50c3db36e89b127b8a622b120f6721",
+            "a55e93edb1350916bf5beea1b13d8f198ef410033445bcb645b65be5432722f1")
+HASH_SAMPLE = ("0211e028f08c500889891cc294fe758a60e84495ec1e2d0bce208c9fc67b"
+               "6486fd")
+CLI_MSG_LENGTHS = (12, 24, 41)
 
 
 def fail(msg: str) -> None:
@@ -357,6 +405,7 @@ def main() -> int:
                     help="tuples of the chunked config-5 phase, in chunks of "
                          "8,192 (BASELINE config 5 runs 1,048,576)")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     chunk = min(CONFIG5_CHUNK, args.chunked // 2)
     if chunk < 1 or args.chunked % chunk:
         print(f"chip_smoke: --chunked must be a multiple of {CONFIG5_CHUNK}",
@@ -1047,8 +1096,127 @@ def main() -> int:
               f"chunk's last signature swapped; a chunk of {bad_chunk} "
               "raises InvalidLengthError")
 
+    # -- 9. the protocol layer and the CLI on the card -------------------------------
+    t9 = time.perf_counter()
+    from bn254_tpu_torch import ECDSA, PrivateKey, PublicKey
+    from bn254_tpu_torch.__main__ import main as cli
+
+    def run_cli(argv, stdin=""):
+        """(exit code, stdout) of `python -m bn254_tpu_torch <argv>`, run
+        in this process with stdin and stdout redirected."""
+        out, saved_in = io.StringIO(), sys.stdin
+        sys.stdin = io.StringIO(stdin)
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = cli(argv)
+        finally:
+            sys.stdin = saved_in
+        return rc, out.getvalue()
+
+    # the host flows: two fixed keys (the reference's example), their
+    # aggregate accepted on its message and rejected on another
+    sk_a, sk_b = CLI_KEYS
+    outs = [run_cli(a)[1].strip() for a in (
+        ["pubkey", sk_a], ["pubkey", sk_b], ["sign", sk_a, "sample"],
+        ["sign", sk_b, "sample"])]
+    agg_pk = run_cli(["aggregate-pks", outs[0], outs[1]])[1].strip()
+    agg_sig = run_cli(["aggregate-sigs", outs[2], outs[3]])[1].strip()
+    if run_cli(["verify", agg_pk, agg_sig, "sample"]) != (0, "ok\n"):
+        fail("CLI: the aggregate signature was not accepted on its message")
+    if run_cli(["verify", agg_pk, agg_sig, "tampered"]) != (1, "FAIL\n"):
+        fail("CLI: the aggregate signature was not rejected (rc 1, FAIL) on "
+             "another message")
+    if run_cli(["hash-to-g1", "sample"]) != (0, HASH_SAMPLE + "\n"):
+        fail("CLI: hash-to-g1 of 'sample' differs from the reference's "
+             "golden value")
+    print("cli: pubkey, sign, aggregate-pks, aggregate-sigs and verify on two "
+          "keys: the aggregate accepted on its message, rejected (rc 1) on "
+          "another; hash-to-g1 'sample' = the golden " + HASH_SAMPLE)
+
+    # batch-verify in process: NB tuples under 16 keys, messages of three
+    # lengths, signed on the card by api.batch_sign, three signatures swapped
+    NB, n_keys, n_len = 256, 16, len(CLI_MSG_LENGTHS)
+    cli_msgs = [(f"cli-{i:04d}-" + "m" * 64)[:CLI_MSG_LENGTHS[i % n_len]]
+                for i in range(NB)]
+    cli_sks = [PrivateKey(int.from_bytes(rng.bytes(32), "big"))
+               for _ in range(n_keys)]
+    cli_pks = [PublicKey.from_private_key(k).to_compressed().hex()
+               for k in cli_sks]
+    cli_sigs = api.batch_sign([m.encode() for m in cli_msgs],
+                              [cli_sks[i % n_keys] for i in range(NB)])
+    for i in rng.choice(NB, size=8, replace=False):
+        if cli_sigs[i].to_compressed() != ECDSA.sign(
+                cli_msgs[i].encode(), cli_sks[i % n_keys]).to_compressed():
+            fail(f"CLI fixture: api.batch_sign's signature {i} differs from "
+                 "ECDSA.sign's by compressed bytes")
+    sig_hexes = [s.to_compressed().hex() for s in cli_sigs]
+    cli_bad = [7, NB // 2, NB - 2]
+    for i in cli_bad:
+        sig_hexes[i] = sig_hexes[i + 1]
+
+    def lines(n, sigs_):
+        return "".join(json.dumps({"msg": cli_msgs[i], "sig": sigs_[i],
+                                   "pk": cli_pks[i % n_keys]}) + "\n"
+                       for i in range(n))
+
+    cli_widths = {}
+    reset_counts()
+    with launches_recorded(run_launches, cli_widths):
+        (rc, out), cli_ms = events_ms(
+            torch, lambda: run_cli(["batch-verify"], lines(NB, sig_hexes)))
+    cli_counts = {**FK.launches, "montmul": MK.launches}
+    faults = cli_launch_faults(FK.launches, n_len)
+    if faults or not MK.launches:
+        fail("CLI batch-verify: launches " + json.dumps(cli_counts)
+             + f" differ from its table ({n_len} message lengths): "
+             + "; ".join(faults or ["no montmul launch"]))
+    flagged = [i for i, line in enumerate(out.splitlines())
+               if line.startswith("FAIL ")]
+    want_lines = [f"{'FAIL' if i in cli_bad else 'ok'} {cli_msgs[i]}"
+                  for i in range(NB)]
+    if rc != 1 or out.splitlines() != want_lines:
+        fail(f"CLI batch-verify: rc {rc}, FAIL on lines {flagged}, want rc 1 "
+             f"and FAIL on exactly {cli_bad}")
+    msgs_b = [m.encode() for m in cli_msgs]
+    pk_objs = [PublicKey.from_compressed(bytes.fromhex(cli_pks[i % n_keys]))
+               for i in range(NB)]
+    _, api_ms = events_ms(torch, lambda: api.batch_verify(
+        msgs_b, cli_sigs, pk_objs, mode="independent"))
+    print(f"cli batch-verify: {NB} lines, {n_keys} keys, {n_len} message "
+          f"lengths {list(CLI_MSG_LENGTHS)}, signed on the card (8 equal to "
+          f"ECDSA.sign), rc 1 and FAIL on exactly lines {cli_bad}; "
+          f"{cli_ms:.1f} ms (CUDA events, the whole in-process CLI call), "
+          f"{api_ms:.1f} ms for api.batch_verify alone on the decoded tuples "
+          f"(warm), on {card}; launches {json.dumps(cli_counts)}; lanes per "
+          "launch " + json.dumps(lanes(cli_widths)))
+
+    # the real entry points, each in a process of its own, on the card
+    root = pathlib.Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "bn254_tpu_torch",
+                        "batch-verify"], input=lines(16, [
+                            s.to_compressed().hex() for s in cli_sigs]),
+                       cwd=root, capture_output=True, text=True, timeout=600)
+    cli_proc_s = time.perf_counter() - t0
+    if r.returncode != 0 or r.stdout.splitlines() != [
+            f"ok {cli_msgs[i]}" for i in range(16)]:
+        fail(f"python -m bn254_tpu_torch batch-verify: rc {r.returncode}, "
+             f"stdout {r.stdout[-300:]!r}, stderr {r.stderr[-600:]!r}")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "examples/batch_verify_gpu.py", "16"],
+                       cwd=root, capture_output=True, text=True, timeout=600)
+    example_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"examples/batch_verify_gpu.py 16: rc {r.returncode}, stdout "
+             f"{r.stdout[-300:]!r}, stderr {r.stderr[-600:]!r}")
+    print(f"cli: python -m bn254_tpu_torch batch-verify (no --device) on 16 "
+          f"valid lines: rc 0, 16 ok lines, {cli_proc_s:.2f} s; "
+          f"examples/batch_verify_gpu.py 16: rc 0, {example_s:.2f} s "
+          f"(wall, each a process of its own, kernels loaded from the build "
+          f"of phase 2); phase 9 in {time.perf_counter() - t9:.1f} s wall")
+
     # every fused kernel against its plain body at each further (lane count,
-    # input bounds) the runs of phases 4 to 6 and 8 launched it at
+    # input bounds) the runs of phases 4 to 6, 8 and 9 launched it at
     with torch.inference_mode():
         for key, seen in run_launches.items():
             for n, bounds in sorted(seen - checked[key]):
@@ -1359,6 +1527,7 @@ def main() -> int:
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None, "chunked_launches": chunk_launches["montmul"],
+        "cli_batch_verify_launches": cli_counts["montmul"],
     })
     def launch_ms(key, args_):
         """ms per launch of the bare kernel on these inputs, warm."""
@@ -1397,6 +1566,7 @@ def main() -> int:
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "chunked_launches": chunk_launches[key],
+            "cli_batch_verify_launches": cli_counts[key],
         }
         if key in FK.INSTANCES:  # G at each width it runs
             row["groups"] = {str(w): FK.coop_group(key, w, sms)
@@ -1429,6 +1599,8 @@ def main() -> int:
                     key, max(n for n, _ in ind_widths[key]), "independent",
                     ind_launches[key], lanes(ind_widths)))
     print(json.dumps({"independent_path_kernels": shared}))
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s wall")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

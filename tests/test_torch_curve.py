@@ -136,3 +136,56 @@ def test_glv_weight_guards():
     a, b = L.to_ints(w.a), L.to_ints(w.b)
     assert (int(a[0]), int(b[0])) == (1, 0)
     assert all((int(x) or int(y)) for x, y in zip(a, b))
+
+
+# the public G1 helpers and jacobian.from_affine, against the JAX twins
+def helper_cases(edge_pair):
+    h1, h2 = edge_pair
+    a, b = JG1.from_host(h1), JG1.from_host(h2)
+    jx, jy, jinf = JG1.to_affine(a)
+    px, py, pinf = G1.to_affine(carry_point(a))
+    return {
+        "generator": (JG1.generator((3,)), G1.generator((3,))),
+        "identity": (JG1.identity((3,)), G1.identity((3,))),
+        "double": (JG1.double(a), G1.double(carry_point(a))),
+        "neg": (JG1.neg(a), G1.neg(carry_point(a))),
+        "from_host": (a, G1.from_host(h1)),
+        "from_host_one": (JG1.from_host(h1[0]), G1.from_host(h1[0])),
+        "from_affine": (JJ.from_affine(JFqOps, jx, jy),
+                        J.from_affine(FqOps, px, py)),
+        "from_affine_inf": (JJ.from_affine(JFqOps, jx, jy, jinf),
+                            J.from_affine(FqOps, px, py, pinf)),
+        "eq": (JG1.eq(a, b), G1.eq(carry_point(a), carry_point(b))),
+        "eq_self": (JG1.eq(a, a), G1.eq(carry_point(a), G1.from_host(h1))),
+        "is_on_curve_affine": (JG1.is_on_curve_affine(jx, jy),
+                               G1.is_on_curve_affine(px, py)),
+    }
+
+
+HELPER_NAMES = ["generator", "identity", "double", "neg", "from_host",
+                "from_host_one", "from_affine", "from_affine_inf", "eq",
+                "eq_self", "is_on_curve_affine"]
+
+
+@pytest.mark.parametrize("name", HELPER_NAMES)
+def test_g1_helpers_match_jax(name, edge_pair):
+    want, got = helper_cases(edge_pair)[name]
+    if hasattr(got, "dtype"):  # a bool mask
+        assert np.array_equal(np.asarray(want), got.numpy())
+    else:
+        assert_same(want, got)
+
+
+def test_g1_helpers_by_value(edge_pair):
+    h1, _ = edge_pair
+    g = G1.generator()
+    assert G1.to_host_affine(*G1.to_affine(
+        J.JPoint(*[L.stack([c]) for c in g]))) == [
+        HC.g1_to_affine(HC.G1_ONE)]
+    a = G1.from_host(h1)
+    assert G1.eq(G1.add(a, a), G1.double(a)).all()
+    assert G1.eq(G1.add(a, G1.neg(a)), G1.identity((5,))).all()
+    x, y, inf = G1.to_affine(a)  # the last point is the identity: (0, 0)
+    assert G1.is_on_curve_affine(x, y).numpy().tolist() == [True] * 4 + [
+        False]
+    assert not G1.is_on_curve_affine(x, L.add_mod(y, L.mont_one((5,)))).any()

@@ -175,3 +175,66 @@ def test_fq12_cyc_sq_on_easy_part_output(rng):
     got = T.fq12_cyc_sq(carry(e))
     assert_same(want, got)
     assert T.fq12_eq(got, T.fq12_sq(carry(e))).all()
+
+
+def fq6(rng):
+    return JT.Fq6(*[JT.Fq2(mont(rng), mont(rng)) for _ in range(3)])
+
+
+def host_fq12(rng):
+    return tuple(tuple((int(v), int(w)) for v, w in
+                       zip(rand_ints(rng, 3), rand_ints(rng, 3)))
+                 for _ in range(2))
+
+
+# the public helpers of limbs.py and tower.py that no path above reaches:
+# each builds its inputs from rng and returns (JAX output, port output)
+HELPERS = {
+    "limbs.to_int": lambda rng: (
+        lambda a: (JL.to_int(a), L.to_int(carry(a))))(lazy(rng)),
+    "limbs.double_mod": lambda rng: (
+        lambda a: (JL.double_mod(a), L.double_mod(carry(a))))(lazy(rng)),
+    "tower.fq12_zero": lambda rng: (JT.fq12_zero((B,)), T.fq12_zero((B,))),
+    "tower.fq6_mul_fq2": lambda rng: (
+        lambda a, s: (JT.fq6_mul_fq2(a, s),
+                      T.fq6_mul_fq2(carry_fq6(a), carry(s))))(
+        fq6(rng), JT.Fq2(mont(rng), mont(rng))),
+    "tower.fq12_add": lambda rng: (
+        lambda a, b: (JT.fq12_add(a, b), T.fq12_add(carry(a), carry(b))))(
+        fq12(rng), fq12(rng)),
+    "tower.fq12_sub": lambda rng: (
+        lambda a, b: (JT.fq12_sub(a, b), T.fq12_sub(carry(a), carry(b))))(
+        fq12(rng), fq12(rng)),
+    "tower.fq12_neg": lambda rng: (
+        lambda a: (JT.fq12_neg(a), T.fq12_neg(carry(a))))(fq12(rng)),
+    "tower.fq2_from_ints": lambda rng: (
+        lambda v: (JT.fq2_from_ints(v), T.fq2_from_ints(v)))(
+        (rand_ints(rng), rand_ints(rng))),
+    "tower.fq12_from_host": lambda rng: (
+        lambda h: (JT.fq12_from_host(h, (B,)), T.fq12_from_host(h, (B,))))(
+        host_fq12(rng)),
+}
+
+
+def carry_fq6(a):
+    return T.Fq6(*[carry(c) for c in a])
+
+
+@pytest.mark.parametrize("name", sorted(HELPERS))
+def test_public_helpers_match_jax(name, rng):
+    want, got = HELPERS[name](rng)
+    if isinstance(want, int):
+        assert got == want
+    else:
+        assert_same(want, got)
+
+
+def test_fq2_to_ints_round_trip(rng):
+    v = (rand_ints(rng), rand_ints(rng))
+    a = JT.fq2_from_ints(v)
+    want = JT.fq2_to_ints(a)
+    got = T.fq2_to_ints(carry(a))
+    assert [list(map(int, c)) for c in got] == \
+        [list(map(int, c)) for c in want] == [list(c) for c in v]
+    assert [list(map(int, c)) for c in T.fq2_to_ints(T.fq2_from_ints(v))] \
+        == [list(c) for c in v]

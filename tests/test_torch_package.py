@@ -40,12 +40,26 @@ def test_import_loads_no_jax_and_no_reference_package():
 
 
 def test_no_source_imports_jax_or_reference_package():
-    files = list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                       REPO / "examples/batch_verify_gpu.py"]
+    assert PKG / "__main__.py" in files
     offenders = [str(f) for f in files if _FORBIDDEN.search(f.read_text())]
     assert offenders == []
     assert _FORBIDDEN.search("from bn254_tpu.fields import limbs")
     assert _FORBIDDEN.search("import jax.numpy as jnp")
     assert not _FORBIDDEN.search("from bn254_tpu_torch import api")
+
+
+def test_exports_match_the_jax_package():
+    import bn254_tpu
+
+    import bn254_tpu_torch
+
+    assert set(bn254_tpu_torch.__all__) == set(bn254_tpu.__all__)
+    for name in bn254_tpu_torch.__all__:
+        assert getattr(bn254_tpu_torch, name) is not None
+    assert bn254_tpu_torch.__version__ == bn254_tpu.__version__
+    assert api.Signature is bn254_tpu_torch.Signature
 
 
 def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):

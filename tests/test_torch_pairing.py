@@ -130,3 +130,34 @@ def test_full_pairing_matches_oracle_and_bilinear(golden_points):
     want = HP.pairing(JHC.g1_from_affine(sxa), q)
     assert HF.fq12_eq(got[0], want) and HF.fq12_eq(got[1], want)
     assert not HF.fq12_eq(want, HF.FQ12_ONE)
+
+
+def test_miller_product_truncated_matches_jax(monkeypatch):
+    """`pairing.miller_product` on a 2-pair axis against the JAX twin, both
+    Miller loops cut to the truncated schedule."""
+    from bn254_tpu.pairing import pairing as JP
+    from bn254_tpu_torch.fields import limbs as L
+
+    naf = (1, -1)
+    monkeypatch.setattr(JM, "miller_loop", lambda xp, yp, qx, qy, inf_mask=None:
+                        JM._miller_loop_scan(xp, yp, qx, qy, inf_mask, naf=naf))
+    monkeypatch.setattr(M, "_ATE_NAF", naf)
+    g1 = [JHC.g1_mul(JHC.G1_ONE, 11 + 4 * i) for i in range(4)]
+    g2 = [JHC.g2_mul(JHC.G2_ONE, 3 + 9 * i) for i in range(4)]
+    px, py = JCV.g1_batch_to_device_affine(g1)
+    qx, qy = JCV.g2_batch_to_device_affine(g2)
+
+    def pairs(x):  # (18, 4) -> (18, 2 pairs, 2 batch)
+        return jax.tree_util.tree_map(lambda a: a.reshape(18, 2, 2), x)
+
+    want = jax.jit(JP.miller_product)(*map(pairs, (px, py, qx, qy)))
+
+    def carry(x):
+        ps = [(np.asarray(e.arr).reshape(18, 2, 2), e.vmax, e.lmax)
+              for e in leaves(x)]
+        return (CV.from_numpy(*ps[0]) if len(ps) == 1
+                else CV.fq2_from_numpy(ps))
+
+    got = DP.miller_product(*map(carry, (px, py, qx, qy)))
+    assert_same(want, got)
+    assert L.tree_leaves(got)[0].batch_shape == (2,)
