@@ -1,7 +1,8 @@
 """Configuration of the batch-verification pipeline.
 
 The knobs this package honours: the hash-search width, the RLC weight
-width, the weight form and the loop form. Environment variables give the
+width, the weight form, the loop form, and the process-group settings of
+the sharded verifier (dist/mesh.py). Environment variables give the
 defaults (`Config.from_env`), explicit overrides win. There is no switch
 that turns the CUDA kernels off: a CUDA tensor always goes through them.
 """
@@ -39,6 +40,15 @@ class Config:
     # replacing DEFAULT; `api` refuses a passed config that differs here.
     unroll_static_loops: bool = True
 
+    # mesh axis name used by the sharded verifier and collectives.
+    axis_name: str = "batch"
+
+    # multi-process (torch.distributed) settings; None = single-process.
+    # `dist.mesh.initialize` starts a process group at tcp://<address>.
+    coordinator_address: str | None = None
+    num_processes: int = 1
+    process_id: int = 0
+
     @classmethod
     def from_env(cls, **overrides) -> "Config":
         """Defaults from the environment, then explicit overrides."""
@@ -51,6 +61,10 @@ class Config:
             env["glv_weights"] = False
         if os.environ.get("BN254_DISABLE_UNROLL"):
             env["unroll_static_loops"] = False
+        if os.environ.get("BN254_COORDINATOR"):
+            env["coordinator_address"] = os.environ["BN254_COORDINATOR"]
+            env["num_processes"] = int(os.environ.get("BN254_NUM_PROCESSES", "1"))
+            env["process_id"] = int(os.environ.get("BN254_PROCESS_ID", "0"))
         env.update(overrides)
         return cls(**env)
 

@@ -1,6 +1,6 @@
-"""Batched BLS verification on one device (the throughput workload).
+"""Batched and sharded BLS verification (the throughput workload).
 
-Counterpart of `bn254_tpu/dist/batch_verify.py`, single-device tiers only:
+Counterpart of `bn254_tpu/dist/batch_verify.py`:
 
 1. `verify_batch_independent` — N independent (H(m), sig, pk) tuples:
    each tuple is its own 2-pair product check with its own final
@@ -15,6 +15,10 @@ Counterpart of `bn254_tpu/dist/batch_verify.py`, single-device tiers only:
    batch too large for one pass through it in chunks (BASELINE config 5).
 3. `verify_batch_adaptive` — tier 2 first; only a rejected batch pays for
    tier 1, which then says which tuples failed.
+4. `make_sharded_verifier` — tier 2 sharded over the ranks of a
+   `torch.distributed` process group (dist/mesh.py): shard-local points,
+   Miller loops and Fq12 product, ONE Fq12-product all-reduce
+   (dist/collectives.py), one final exponentiation on every rank.
 
 RLC weights are cryptographic (`secrets`, curve/glv.py); every entry point
 also accepts explicit weights.
@@ -38,6 +42,8 @@ from ..pairing import final_exp as FE
 from ..pairing import miller as M
 from ..pairing import pairing as DP
 from ..utils import convert as CV
+from . import collectives as COLL
+from . import mesh as MESH
 
 
 def _neg_g2_one(batch_shape, device):
@@ -257,6 +263,12 @@ def _miller_reduce(px, py, qx, qy, inf):
     return T.fq12_retag(DP.fq12_reduce_mul(f, axis=0))
 
 
+def _fused_local_product(hx, hy, sx, sy, pqx, pqy, w, nbits: int):
+    """Stages A+B: a SCALAR (batch-()) Fq12. Combine shards or chunks by
+    fq12_mul, then ONE final_exp + is_one."""
+    return _miller_reduce(*_fused_points(hx, hy, sx, sy, pqx, pqy, w, nbits))
+
+
 @torch.inference_mode()
 def verify_batch_fused(hx, hy, sx, sy, pqx, pqy, weights,
                        nbits: int | None = None) -> torch.Tensor:
@@ -267,8 +279,7 @@ def verify_batch_fused(hx, hy, sx, sy, pqx, pqy, weights,
     One shared final exponentiation for the whole batch.
     """
     w, nb = _resolve_weights(weights, nbits, hx.device)
-    pts = _fused_points(hx, hy, sx, sy, pqx, pqy, w, nb)
-    f_red = _miller_reduce(*pts)
+    f_red = _fused_local_product(hx, hy, sx, sy, pqx, pqy, w, nb)
     return T.fq12_is_one(FE.final_exp(f_red))
 
 
@@ -312,10 +323,9 @@ def verify_batch_fused_chunked(hx, hy, sx, sy, pqx, pqy, weights,
     f_acc = None
     for off in range(0, B, chunk):
         sl = slice(off, off + chunk)
-        pts = _fused_points(
+        f_c = _fused_local_product(
             *(_slice_batch(x, sl) for x in (hx, hy, sx, sy, pqx, pqy, w)),
             nb)
-        f_c = _miller_reduce(*pts)
         f_acc = f_c if f_acc is None else _chunk_combine(f_acc, f_c)
     return T.fq12_is_one(FE.final_exp(f_acc))
 
@@ -391,3 +401,75 @@ def verify_batch_adaptive(hx, hy, sx, sy, pqx, pqy,
     )
     return res if defer else res.resolve()
 
+
+# ---------------------------------------------------------------------------
+# Tier 4: sharded fused verification over a process group
+# ---------------------------------------------------------------------------
+
+
+def make_sharded_verifier(mesh: MESH.Mesh, axis_name: str = "batch",
+                          nbits: int | None = None):
+    """Build an SPMD fused verifier over `mesh` (dist/mesh.py).
+
+    Every rank calls the returned `run` with the SAME full batch. It runs
+    the JAX package's staged pipeline, one stage after another:
+      1. per chunk, on the rank's shard of it (`mesh.shard_tree`): the
+         weight ladders, the shard's signature-sum row, the Miller loops
+         and the Fq12 product (`_fused_local_product`; bilinearity makes
+         the shards' S rows compose by product, no G1 collective);
+      2. the chunks folded into a per-rank accumulator (`_chunk_combine`),
+         no communication;
+      3. the Fq12-product all-reduce (`collectives.fq12_allreduce_mul`),
+         the ONLY collective, once per job;
+      4. ONE final exponentiation and is_one, on every rank.
+    It returns the same 0-dim bool on every rank, on the mesh's device.
+
+    Weights are required, as in the JAX package: a GlvWeights (its own
+    width), a PlainWeights, or a list of ints validated against `nbits`
+    (default config.rlc_bits at build time); every rank passes the same
+    full-batch weights and takes its slice. The JAX package's
+    `monolithic=True` (one XLA program) and its TPU-only `final_exp_wide`
+    have no counterpart.
+    """
+    if axis_name != mesh.axis_name:
+        raise ValueError(
+            f"the mesh's axis is {mesh.axis_name!r}, not {axis_name!r}")
+    if nbits is None:
+        from .. import config as C
+
+        nbits = min(int(C.DEFAULT.rlc_bits), 256)
+    n_dev = mesh.size
+
+    @torch.inference_mode()
+    def run(hx, hy, sx, sy, pqx, pqy, weights,
+            chunk: int | None = None) -> torch.Tensor:
+        """hx..sy: El (18, B); pqx/pqy: Fq2 of El; weights: see above.
+
+        chunk: stream the batch in `chunk`-sized pieces, each split over
+        the ranks: peak memory O(chunk) instead of O(B), and still ONE
+        collective and ONE final exponentiation per job. None runs the
+        one-shot form. The batch must divide by the mesh size, and by
+        `chunk`, which must divide by the mesh size (InvalidLengthError).
+        """
+        B = hx.batch_shape[-1]
+        if B % n_dev != 0:
+            raise InvalidLengthError(
+                f"batch {B} must divide the mesh axis size {n_dev}")
+        w, nb = _resolve_weights(weights, nbits, hx.device)
+        if chunk is None:
+            chunk = B
+        elif chunk <= 0 or B % chunk != 0 or chunk % n_dev != 0:
+            raise InvalidLengthError(
+                f"batch {B} must be a multiple of chunk {chunk}, "
+                f"which must divide the mesh axis size {n_dev}")
+        f_acc = None
+        for off in range(0, B, chunk):
+            piece = tuple(_slice_batch(x, slice(off, off + chunk))
+                          for x in (hx, hy, sx, sy, pqx, pqy, w))
+            f_local = _fused_local_product(*MESH.shard_tree(piece, mesh), nb)
+            f_acc = (f_local if f_acc is None
+                     else _chunk_combine(f_acc, f_local))
+        f_all = COLL.fq12_allreduce_mul(f_acc, mesh)  # once per job
+        return T.fq12_is_one(FE.final_exp(f_all))
+
+    return run

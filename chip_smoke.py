@@ -4,6 +4,9 @@
     python3 chip_smoke.py [--batch 8192] [--independent 4096] [--keys 16]
                           [--seed 2026] [--chunked 131072]
 
+(`--sharded-rank r --sharded-world n --sharded-port p --sharded-fixture f`
+runs one rank of phase 10's gloo group; phase 10 starts them itself.)
+
 Phases, each of which exits non-zero on failure:
 
 1. The card: name and power limit (nvidia-smi), torch and CUDA versions.
@@ -43,7 +46,7 @@ Phases, each of which exits non-zero on failure:
      (acc, sel or both the identity, sel = 2acc, sel = -2acc) at the GLV
      ladder's width.
      Phase 6 adds every further lane count and input bound the paths
-     launched a kernel at, and fails if a launch of phases 4 to 6, 8 or 9
+     launched a kernel at, and fails if a launch of phases 4 to 6 or 8 to 10
      is left unheld.
 4. The main path through the user entry points: `api.batch_sign` makes
    the signatures of `batch` distinct messages under `keys` keys (8 held
@@ -82,9 +85,9 @@ Phases, each of which exits non-zero on failure:
    exactly its index (fused check and stacked fallback, 130/46/176/130
    step-op launches), the independent tier with three tampered flagged
    exactly through the stacked form at 2 x `independent` lanes, and the
-   key check exact. Then, after the runs of phases 8 and 9, every fused kernel is held
+   key check exact. Then, after the runs of phases 8 to 10, every fused kernel is held
    against its plain body, as in phase 3, at each further (lane count,
-   input bounds) that the runs of phases 4 to 6, 8 and 9 launched it at
+   input bounds) that the runs of phases 4 to 6 and 8 to 10 launched it at
    (recorded by wrapping `fused.fused_op` and `fused._launch`); every
    (lane count, input bounds) a path launched must have been held so; the
    widths and bound sets held are printed for the kernels over cios_wide
@@ -149,14 +152,36 @@ Phases, each of which exits non-zero on failure:
    `python -m bn254_tpu_torch batch-verify` with no --device on 16 valid
    lines (rc 0, 16 ok lines) and `examples/batch_verify_gpu.py 16` (rc 0),
    each a process of its own, with their seconds.
+10. The sharded verifier, `dist/batch_verify.py:make_sharded_verifier`,
+   on the first 16,384 tuples of phase 8's fixture with 128-bit GLV
+   weights from a seeded generator. (a) In this process, a world-size-1
+   NCCL process group on the card: one-shot on 8,192 tuples and in 2
+   chunks of 8,192 on 16,384, each accepting with `verify_batch_fused` /
+   `verify_batch_fused_chunked` on the same inputs (the chunked runs with
+   the same Miller product by canonical value), in chunks of 4,096 too,
+   each with exactly `sharded_launches`; each rejecting its last
+   signature swapped; a chunk that does not divide raising. Warm ms of
+   the one-shot run against `verify_batch_fused`, in turns, and of one
+   NCCL all_gather of the packed Fq12. (b) Two ranks on this card over
+   gloo, each a process of this script (`--sharded-rank`, the fixture
+   saved once with torch.save): 16,384 tuples one-shot (a shard of 8,192
+   and its signature-sum row a rank) and in chunks of 8,192 (shards of
+   4,096), both accepting, the swapped batch rejected, each rank's
+   launches exactly `sharded_launches`, both ranks' gathered Fq12 limbs
+   equal and equal to (a)'s in-process products by canonical value; each
+   rank's wall seconds and gather-and-product ms. Every launch of (a) and
+   (b) goes into phase 6's hold. Each rank has a time limit; a rank that
+   fails fails the script.
 
 It prints a kernels JSON line with every fused kernel on the path that
 launches it (the lane-cooperative ones with their G at each width the
 path runs them, `groups`), each with that path's name and launch count
 (`adaptive`; the two-pair bodies `independent`; fq12_sq and the three step
 ops `adaptive_no_unroll`) and its launches in phase 8's chunked run
-(`chunked_launches`) and in phase 9's CLI batch-verify
-(`cli_batch_verify_launches`), the shared kernels' rows for the independent path on
+(`chunked_launches`), in phase 9's CLI batch-verify
+(`cli_batch_verify_launches`) and in each run of phase 10
+(`sharded_launches`, by run; the gloo runs' from rank 0, which equal rank
+1's), the shared kernels' rows for the independent path on
 the line before the card's, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -234,14 +259,23 @@ assert {k: v for k, v in staged(HASH_LAUNCHES, CHUNK_STAGE_LAUNCHES,
 CONFIG5_CHUNK = 8192  # bench.py's config 5: 1,048,576 tuples in 128 chunks
 
 
+def sharded_launches(world: int, n_chunks: int, shard_chunk: int) -> dict:
+    """Every fused kernel's launches on one rank of `make_sharded_verifier`'s
+    run over a mesh of `world` ranks, in n_chunks chunks whose shards are
+    `shard_chunk` tuples: each chunk's stages at the shard's width, one
+    one-lane fq12_mul fold per chunk after the first, world - 1 one-lane
+    fq12_mul over the gathered values, one final exponentiation (the
+    kernels the fused tier never runs are not named)."""
+    per_chunk = {**CHUNK_STAGE_LAUNCHES,
+                 "fq12_mul": tree_launches(shard_chunk + 1)}
+    return staged({k: n_chunks * v for k, v in per_chunk.items()},
+                  {"fq12_mul": n_chunks - 1 + world - 1}, FINAL_EXP_LAUNCHES)
+
+
 def chunked_launches(n_chunks: int, chunk: int) -> dict:
     """Every fused kernel's launches in `verify_batch_fused_chunked` over
-    n_chunks chunks of `chunk` tuples: each chunk's stages, one one-lane
-    fq12_mul fold per chunk after the first, one final exponentiation;
-    0 for the kernels the fused tier never runs."""
-    per_chunk = {**CHUNK_STAGE_LAUNCHES, "fq12_mul": tree_launches(chunk + 1)}
-    return staged({k: n_chunks * v for k, v in per_chunk.items()},
-                  {"fq12_mul": n_chunks - 1}, FINAL_EXP_LAUNCHES)
+    n_chunks chunks of `chunk` tuples: a mesh of one rank's."""
+    return sharded_launches(1, n_chunks, chunk)
 # the independent tier on the card (pair2): the same schedule through the
 # two-pair bodies, then the final exponentiation at one lane per tuple;
 # one square root per message length (hash/tai_batch.py hashes each
@@ -326,6 +360,83 @@ def events_ms(torch, fn, reps: int = 1):
     return out, start.elapsed_time(end) / reps
 
 
+def reset_counts():
+    """Every kernel's launch count to 0."""
+    from bn254_tpu_torch.kernels import fused as FK
+    from bn254_tpu_torch.kernels import montmul as MK
+
+    MK.launches = 0
+    FK.launches.update(dict.fromkeys(FK.launches, 0))
+
+
+def lanes(recorded):
+    """The lane counts of each key's recorded launches."""
+    return {k: sorted({n for n, _ in v}) for k, v in recorded.items()}
+
+
+def in_bounds(args_):
+    """The (vmax, lmax) of every El of a fused kernel's arguments."""
+    from bn254_tpu_torch.fields import limbs as L
+
+    return tuple((e.vmax, e.lmax) for e in L.tree_leaves(args_))
+
+
+@contextlib.contextmanager
+def launches_recorded(*into):
+    """Each fused kernel launch's (lane count, input bounds), added to
+    every dict of `into` under its key."""
+    from bn254_tpu_torch.kernels import fused as FK
+
+    fused_op, launch = FK.fused_op, FK._launch
+    bounds = [None]  # the bounds of the fused_op call that launches
+
+    def recorded_op(fn, key, *args_):
+        bounds[0] = in_bounds(args_)
+        return fused_op(fn, key, *args_)
+
+    def recorded(key, packed, out):
+        for d in into:
+            d.setdefault(key, set()).add((packed.shape[2], bounds[0]))
+        return launch(key, packed, out)
+
+    FK.fused_op, FK._launch = recorded_op, recorded
+    try:
+        yield
+    finally:
+        FK.fused_op, FK._launch = fused_op, launch
+
+
+@contextlib.contextmanager
+def final_exp_inputs(into: list):
+    """The Fq12 each final exponentiation is given (the Miller product of
+    a fused or sharded check), appended to `into`."""
+    from bn254_tpu_torch.pairing import final_exp as FE
+
+    final_exp = FE.final_exp
+
+    def recorded(f):
+        into.append(f)
+        return final_exp(f)
+
+    FE.final_exp = recorded
+    try:
+        yield
+    finally:
+        FE.final_exp = final_exp
+
+
+def fq12_canon(packed) -> list[int]:
+    """The twelve canonical Fp values (Montgomery form, mod p) of an Fq12
+    packed by `dist.collectives.pack` (a tensor or a list of 216 limbs)."""
+    import torch
+
+    from bn254_tpu_torch.constants import NLIMBS, P
+    from bn254_tpu_torch.fields import limbs as L
+
+    t = torch.as_tensor(packed).reshape(12, NLIMBS).T.cpu()
+    return [int(v) % P for v in L.to_ints(t)]
+
+
 def ptxas_summary(log: str) -> list[str]:
     """Registers, stack frame and spills of each kernel entry in a
     `-Xptxas=-v` report."""
@@ -393,6 +504,323 @@ def sass_counts(nvcc: str, lib_path: str, wanted) -> list[str]:
             for fn, c in counts.items() if c]
 
 
+SHARDED_TUPLES = 2 * CONFIG5_CHUNK  # phase 10: the first 16,384 of phase 8
+SHARDED_TIMEOUT_S = 300  # phase 10b: a rank's collectives and its process
+
+
+def sharded_worker(args) -> int:
+    """Phase 10b's rank: `make_sharded_verifier` over the gloo group of
+    `--sharded-world` ranks on this card, on the full batch saved in
+    `--sharded-fixture`: one-shot, in chunks, and with the last signature
+    swapped, each with its launch counts and (lane count, input bounds);
+    then the gather-and-product alone. Prints one SHARDED-RESULT JSON line
+    for the parent, with the gathered Fq12's packed limbs."""
+    t_start = time.perf_counter()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card only",
+              file=sys.stderr)
+        return 2
+    try:
+        import torch.distributed as dist
+
+        from bn254_tpu_torch.curve.glv import GlvWeights
+        from bn254_tpu_torch.dist import batch_verify as BV
+        from bn254_tpu_torch.dist import collectives as COLL
+        from bn254_tpu_torch.dist import mesh as MESH
+        from bn254_tpu_torch.fields import limbs as L
+        from bn254_tpu_torch.fields import tower as T
+        from bn254_tpu_torch.kernels import build
+        from bn254_tpu_torch.kernels import fused as FK
+        from bn254_tpu_torch.kernels import montmul as MK
+    except ImportError as e:
+        print(f"chip_smoke: the bn254_tpu_torch package is missing ({e}); "
+              "run from the root of the repository", file=sys.stderr)
+        return 3
+    rank, world = args.sharded_rank, args.sharded_world
+    if not all(build._output(n).exists() for n in ("montmul", "fused")):
+        fail(f"rank {rank}: the kernels are not built (phase 2 builds them "
+             "before the ranks start; a rank starts no nvcc)")
+    if not MESH.initialize(coordinator_address=f"127.0.0.1:{args.sharded_port}",
+                           num_processes=world, process_id=rank,
+                           backend="gloo", timeout=SHARDED_TIMEOUT_S):
+        fail(f"rank {rank}: no process group was started")
+    try:
+        mesh = MESH.make_mesh()
+        if (mesh.size, mesh.rank, mesh.backend, mesh.device) != (
+                world, rank, "gloo", torch.device("cuda", 0)):
+            fail(f"rank {rank}: mesh {mesh}")
+        fx = torch.load(args.sharded_fixture, map_location=mesh.device,
+                        weights_only=True)
+        els = [L.El(a, *b) for a, b in zip(fx["arrs"], fx["bounds"])]
+        xs = (*els[:4], T.Fq2(*els[4:6]), T.Fq2(*els[6:8]))
+        w = GlvWeights(L.El(fx["wa"], *fx["w_bounds"]),
+                       L.El(fx["wb"], *fx["w_bounds"]), fx["bits"])
+        run = BV.make_sharded_verifier(mesh)
+        widths, launches, products, seconds = {}, {}, {}, {}
+
+        def timed(tag, xs_, chunk):
+            reset_counts()
+            seen = []
+            t0 = time.perf_counter()
+            with launches_recorded(widths), final_exp_inputs(seen):
+                ok = bool(run(*xs_, w, chunk=chunk))
+            seconds[tag] = time.perf_counter() - t0
+            launches[tag] = {**FK.launches, "montmul": MK.launches}
+            products[tag] = seen[0]
+            return ok
+
+        ok_one = timed("oneshot", xs, None)
+        ok_chunked = timed("chunked", xs, fx["chunk"])
+        hx, hy, sx, sy, qx, qy = xs
+        with torch.inference_mode():
+            bad_sx, bad_sy = (L.El(e.arr.clone(), e.vmax, e.lmax)
+                              for e in (sx, sy))
+            bad_sx.arr[:, -1], bad_sy.arr[:, -1] = sx.arr[:, -2], sy.arr[:, -2]
+        ok_swapped = timed("swapped", (hx, hy, bad_sx, bad_sy, qx, qy), None)
+        with torch.inference_mode():  # the gather and the product alone
+            f = products["oneshot"]
+            COLL.fq12_allreduce_mul(f, mesh)
+            _, gather_ms = events_ms(
+                torch, lambda: COLL.fq12_allreduce_mul(f, mesh), reps=20)
+        print("SHARDED-RESULT " + json.dumps({
+            "rank": rank, "world": world, "oneshot_ok": ok_one,
+            "chunked_ok": ok_chunked, "swapped_ok": ok_swapped,
+            "launches": launches,
+            "products": {k: COLL.pack(products[k]).tolist()
+                         for k in ("oneshot", "chunked")},
+            "widths": {k: sorted([n, [list(b) for b in bounds]]
+                                 for n, bounds in v)
+                       for k, v in widths.items()},
+            "seconds": seconds, "gather_product_ms": gather_ms,
+            "wall_s": time.perf_counter() - t_start}), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def sharded_phase(args, card: str, inputs, run_launches: dict) -> dict:
+    """Phase 10: `make_sharded_verifier` on the first SHARDED_TUPLES
+    (16,384) tuples of `inputs` (phase 8's fixture) with 128-bit GLV
+    weights from a seeded generator: (a) in this process over NCCL at world
+    size 1, against the one-device checks; (b) two ranks on this card over
+    gloo, each a process of this script (`sharded_worker`), against (a)'s
+    in-process products. Every launch's (lane count, input bounds) goes
+    into `run_launches` for the final hold; returns each run's launches."""
+    import datetime
+    import random
+    import socket
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from bn254_tpu_torch.curve import glv as GLV
+    from bn254_tpu_torch.dist import batch_verify as BV
+    from bn254_tpu_torch.dist import collectives as COLL
+    from bn254_tpu_torch.dist import mesh as MESH
+    from bn254_tpu_torch.errors import InvalidLengthError
+    from bn254_tpu_torch.fields import limbs as L
+    from bn254_tpu_torch.kernels import fused as FK
+    from bn254_tpu_torch.kernels import montmul as MK
+
+    dev = torch.device("cuda", 0)
+
+    t10 = time.perf_counter()
+    NS = min(SHARDED_TUPLES, inputs[0].batch_shape[-1])
+    C10 = NS // 2  # the one-shot batch and the chunk
+    wrng = random.Random(args.seed)
+    w10 = GLV.glv_weights_to_device(
+        [(1, 0)] + [(wrng.getrandbits(64), wrng.getrandbits(64))
+                    for _ in range(NS - 1)], 128, dev)
+
+    def first(n, xs):
+        return tuple(BV._slice_batch(x, slice(0, n)) for x in xs)
+
+    def swapped_last(xs):
+        """The tuples with the last signature replaced by the one before."""
+        hx, hy, sx, sy, qx, qy = xs
+        with torch.inference_mode():
+            bsx, bsy = (L.El(e.arr.clone(), e.vmax, e.lmax) for e in (sx, sy))
+            bsx.arr[:, -1], bsy.arr[:, -1] = sx.arr[:, -2], sy.arr[:, -2]
+        return hx, hy, bsx, bsy, qx, qy
+
+    full10 = first(NS, inputs)
+    half10, w_half = first(C10, full10), BV._slice_batch(w10, slice(0, C10))
+    sharded_widths = {}  # the (lanes, bounds) of this phase's launches
+    sharded_counts = {}  # each run's launches, by run
+
+    def counted_run(tag, run, xs, w, chunk, want):
+        """(accepted, the final exponentiation's input) of one sharded run,
+        whose fused launches must be exactly `want` (and some montmul)."""
+        seen = []
+        reset_counts()
+        with launches_recorded(run_launches, sharded_widths), \
+                final_exp_inputs(seen):
+            ok = bool(run(*xs, w, chunk=chunk))
+        got = {**FK.launches, "montmul": MK.launches}
+        if {k: got[k] for k in FK.KERNELS} != {
+                **dict.fromkeys(FK.KERNELS, 0), **want} or not MK.launches:
+            fail(f"sharded {tag}: launches {json.dumps(got)}, want "
+                 f"{json.dumps(want)} and some montmul")
+        sharded_counts[tag] = got
+        return ok, seen[0]
+
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, timeout=datetime.timedelta(
+                                seconds=SHARDED_TIMEOUT_S))
+    try:
+        mesh = MESH.make_mesh()
+        if (mesh.size, mesh.rank, mesh.backend, mesh.device) != (
+                1, 0, "nccl", dev):
+            fail(f"sharded: the NCCL mesh is {mesh}")
+        run = BV.make_sharded_verifier(mesh)
+        ok_a, _ = counted_run(f"nccl_world1_{C10}", run, half10, w_half,
+                              None, sharded_launches(1, 1, C10))
+        ok_ref = bool(BV.verify_batch_fused(*half10, w_half))
+        if not (ok_a and ok_ref):
+            fail(f"sharded one-shot {C10} (NCCL, world 1): {ok_a}, "
+                 f"verify_batch_fused {ok_ref}; want both to accept")
+        ok_b, f_b = counted_run(f"nccl_world1_{NS}_chunk{C10}", run, full10,
+                                w10, C10, sharded_launches(1, 2, C10))
+        ref_seen = []
+        with final_exp_inputs(ref_seen):
+            ok_ref = bool(BV.verify_batch_fused_chunked(*full10, w10,
+                                                        chunk=C10))
+        if not (ok_b and ok_ref) or fq12_canon(COLL.pack(f_b)) != fq12_canon(
+                COLL.pack(ref_seen[0])):
+            fail(f"sharded chunked {NS} in {C10} (NCCL, world 1): {ok_b}, "
+                 f"verify_batch_fused_chunked {ok_ref}; want both to accept "
+                 "with the same Miller product")
+        # the chunk 10b's ranks run: each rank's shard of a chunk of C10
+        ok_c, f_c = counted_run(f"nccl_world1_{NS}_chunk{C10 // 2}", run,
+                                full10, w10, C10 // 2,
+                                sharded_launches(1, 4, C10 // 2))
+        if not ok_c:
+            fail(f"sharded chunked {NS} in {C10 // 2} (NCCL, world 1) "
+                 "rejected a valid batch")
+        with launches_recorded(run_launches, sharded_widths):
+            if bool(run(*swapped_last(half10), w_half)) or bool(run(
+                    *swapped_last(full10), w10, chunk=C10)):
+                fail("sharded (NCCL, world 1) accepted a batch with its last "
+                     "signature swapped")
+        try:
+            run(*full10, w10, chunk=C10 + 1)
+            fail(f"sharded: a chunk of {C10 + 1} for {NS} tuples did not "
+                 "raise")
+        except InvalidLengthError:
+            pass
+        turns = {"verify_batch_fused": [], "sharded": []}
+        for form in ("verify_batch_fused", "sharded", "sharded",
+                     "verify_batch_fused"):
+            ok, ms = events_ms(torch, (
+                (lambda: BV.verify_batch_fused(*half10, w_half))
+                if form == "verify_batch_fused"
+                else (lambda: run(*half10, w_half))))
+            if not bool(ok):
+                fail(f"a warm {form} run rejected the valid batch")
+            turns[form].append(ms)
+        packed = COLL.pack(f_b)
+        COLL.all_gather(packed, mesh)  # warm: NCCL makes its communicator
+        _, gather_ms = events_ms(torch, lambda: COLL.all_gather(packed, mesh),
+                                 reps=20)
+    finally:
+        dist.destroy_process_group()
+    print(f"sharded 10a (NCCL, world size 1, {card}): one-shot {C10} "
+          f"accepts with verify_batch_fused; {NS} in chunks of {C10} accepts "
+          "with verify_batch_fused_chunked, the same Miller product by "
+          f"canonical value; in chunks of {C10 // 2} accepts; both reject the "
+          f"last signature swapped; a chunk of {C10 + 1} raises; launches "
+          f"{json.dumps(sharded_counts)}; warm ms in turns (CUDA events) "
+          f"{json.dumps(turns)}; one NCCL all_gather of the packed Fq12 "
+          f"({packed.numel() * 8} bytes) {gather_ms:.4f} ms")
+
+    # 10b: two ranks on this card over gloo, each a process of this script
+    with tempfile.TemporaryDirectory() as tmp:
+        fixture = pathlib.Path(tmp) / "sharded_fixture.pt"
+        leaves = L.tree_leaves(full10)
+        torch.save({"arrs": [e.arr.cpu() for e in leaves],
+                    "bounds": [(e.vmax, e.lmax) for e in leaves],
+                    "wa": w10.a.arr.cpu(), "wb": w10.b.arr.cpu(),
+                    "w_bounds": (w10.a.vmax, w10.a.lmax), "bits": w10.bits,
+                    "chunk": C10}, fixture)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        root = pathlib.Path(__file__).resolve().parent
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(root / "chip_smoke.py"), "--sharded-rank",
+             str(r), "--sharded-world", "2", "--sharded-port", str(port),
+             "--sharded-fixture", str(fixture)],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=SHARDED_TIMEOUT_S))
+        except subprocess.TimeoutExpired:
+            fail(f"sharded 10b: a rank did not finish in {SHARDED_TIMEOUT_S} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks_s = time.perf_counter() - t0
+    results = []
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        lines_ = [x for x in out.splitlines()
+                  if x.startswith("SHARDED-RESULT ")]
+        if p.returncode != 0 or len(lines_) != 1:
+            fail(f"sharded 10b: rank {r} rc {p.returncode}, stdout "
+                 f"{out[-600:]!r}, stderr {err[-1500:]!r}")
+        results.append(json.loads(lines_[0][len("SHARDED-RESULT "):]))
+    want_b = {"oneshot": sharded_launches(2, 1, C10),
+              "chunked": sharded_launches(2, 2, C10 // 2)}
+    want_b["swapped"] = want_b["oneshot"]
+    for r, res in enumerate(results):
+        if (res["rank"], res["world"]) != (r, 2) or not res["oneshot_ok"] \
+                or not res["chunked_ok"] or res["swapped_ok"]:
+            fail(f"sharded 10b: rank {r} accepted {res['oneshot_ok']} "
+                 f"(one-shot) / {res['chunked_ok']} (chunks of {C10}), "
+                 f"{res['swapped_ok']} with the last signature swapped")
+        for tag, want in want_b.items():
+            got = res["launches"][tag]
+            if {k: got[k] for k in FK.KERNELS} != {
+                    **dict.fromkeys(FK.KERNELS, 0), **want} \
+                    or not got["montmul"]:
+                fail(f"sharded 10b: rank {r}'s {tag} launches "
+                     f"{json.dumps(got)}, want {json.dumps(want)}")
+        for key, seen in res["widths"].items():
+            for n, bounds in seen:
+                for d in (run_launches, sharded_widths):
+                    d.setdefault(key, set()).add(
+                        (n, tuple(tuple(b) for b in bounds)))
+    for tag, f_in in (("oneshot", f_b), ("chunked", f_c)):
+        limbs = [res["products"][tag] for res in results]
+        if limbs[0] != limbs[1] or fq12_canon(limbs[0]) != fq12_canon(
+                COLL.pack(f_in)):
+            fail(f"sharded 10b: the ranks' {tag} products differ from each "
+                 "other or from the in-process chunked product")
+    for tag in want_b:
+        sharded_counts[f"gloo_world2_{tag}"] = results[0]["launches"][tag]
+    print(f"sharded 10b (gloo, 2 ranks on {card}): {NS} tuples one-shot "
+          f"(a shard of {C10}) and in chunks of {C10} (shards of {C10 // 2}) "
+          "accepted, the last signature swapped rejected, on both ranks; "
+          "the same gathered Fq12 limbs on both, equal to the in-process "
+          "product by canonical value; launches exact; " + json.dumps({
+              "ranks_wall_s": ranks_s,
+              "rank_wall_s": [res["wall_s"] for res in results],
+              "rank_run_s": [res["seconds"] for res in results],
+              "gather_product_ms": [res["gather_product_ms"]
+                                    for res in results]})
+          + f"; lanes per launch {json.dumps(lanes(sharded_widths))}; phase "
+          f"10 in {time.perf_counter() - t10:.1f} s wall")
+    return sharded_counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=8192)
@@ -404,7 +832,15 @@ def main() -> int:
     ap.add_argument("--chunked", type=int, default=16 * CONFIG5_CHUNK,
                     help="tuples of the chunked config-5 phase, in chunks of "
                          "8,192 (BASELINE config 5 runs 1,048,576)")
+    ap.add_argument("--sharded-rank", type=int, default=None,
+                    help="run as this rank of phase 10's gloo group "
+                         "(started by phase 10 itself) and exit")
+    ap.add_argument("--sharded-world", type=int, default=2)
+    ap.add_argument("--sharded-port", type=int, default=0)
+    ap.add_argument("--sharded-fixture", default=None)
     args = ap.parse_args()
+    if args.sharded_rank is not None:
+        return sharded_worker(args)
     t_start = time.perf_counter()
     chunk = min(CONFIG5_CHUNK, args.chunked // 2)
     if chunk < 1 or args.chunked % chunk:
@@ -596,9 +1032,6 @@ def main() -> int:
             L.tree_map(lambda e: L.El(e.arr[:, 0], e.vmax, e.lmax), a)
             if name in unbatched else a for name, a in zip(names, args_))
 
-    def in_bounds(args_):
-        return tuple((e.vmax, e.lmax) for e in L.tree_leaves(args_))
-
     def glv_edge_inputs(n):
         """glv_dbl_add's inputs on n lanes at the pins, lanes 0-4 the
         complete addition's edges: acc the identity, sel the identity,
@@ -689,10 +1122,6 @@ def main() -> int:
                         f"first, {n} lanes", glv_edge_inputs(n))
 
     # -- 4. the main path --------------------------------------------------------
-    def reset_counts():
-        MK.launches = 0
-        FK.launches.update(dict.fromkeys(FK.launches, 0))
-
     def check_counts(tag):
         got = dict(FK.launches)
         exact = {k: got[k] for k in MAIN_PATH_LAUNCHES}
@@ -709,31 +1138,6 @@ def main() -> int:
 
     # (lane count, input bounds) of every fused launch of the runs below
     run_launches = {}
-
-    @contextlib.contextmanager
-    def launches_recorded(*into):
-        """Each fused kernel launch's (lane count, input bounds), added to
-        every dict of `into` under its key."""
-        fused_op, launch = FK.fused_op, FK._launch
-        bounds = [None]  # the bounds of the fused_op call that launches
-
-        def recorded_op(fn, key, *args_):
-            bounds[0] = in_bounds(args_)
-            return fused_op(fn, key, *args_)
-
-        def recorded(key, packed, out):
-            for d in into:
-                d.setdefault(key, set()).add((packed.shape[2], bounds[0]))
-            return launch(key, packed, out)
-
-        FK.fused_op, FK._launch = recorded_op, recorded
-        try:
-            yield
-        finally:
-            FK.fused_op, FK._launch = fused_op, launch
-
-    def lanes(recorded):
-        return {k: sorted({n for n, _ in v}) for k, v in recorded.items()}
 
     def check_pair2_counts(tag, want=INDEPENDENT_LAUNCHES):
         got = {k: FK.launches[k] for k in want}
@@ -1215,8 +1619,10 @@ def main() -> int:
           f"(wall, each a process of its own, kernels loaded from the build "
           f"of phase 2); phase 9 in {time.perf_counter() - t9:.1f} s wall")
 
+    sharded_counts = sharded_phase(args, card, inputs5, run_launches)
+
     # every fused kernel against its plain body at each further (lane count,
-    # input bounds) the runs of phases 4 to 6, 8 and 9 launched it at
+    # input bounds) the runs of phases 4 to 6, 8, 9 and 10 launched it at
     with torch.inference_mode():
         for key, seen in run_launches.items():
             for n, bounds in sorted(seen - checked[key]):
@@ -1528,6 +1934,8 @@ def main() -> int:
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None, "chunked_launches": chunk_launches["montmul"],
         "cli_batch_verify_launches": cli_counts["montmul"],
+        "sharded_launches": {tag: c["montmul"]
+                             for tag, c in sharded_counts.items()},
     })
     def launch_ms(key, args_):
         """ms per launch of the bare kernel on these inputs, warm."""
@@ -1567,6 +1975,8 @@ def main() -> int:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "chunked_launches": chunk_launches[key],
             "cli_batch_verify_launches": cli_counts[key],
+            "sharded_launches": {tag: c[key]
+                                 for tag, c in sharded_counts.items()},
         }
         if key in FK.INSTANCES:  # G at each width it runs
             row["groups"] = {str(w): FK.coop_group(key, w, sms)

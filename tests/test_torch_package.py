@@ -26,6 +26,8 @@ def test_import_loads_no_jax_and_no_reference_package():
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in PKG.rglob("*.py")
     )
+    assert {"bn254_tpu_torch.dist.mesh", "bn254_tpu_torch.dist.collectives",
+            "bn254_tpu_torch.dist.batch_verify"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -43,6 +45,8 @@ def test_no_source_imports_jax_or_reference_package():
     files = list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
                                        REPO / "examples/batch_verify_gpu.py"]
     assert PKG / "__main__.py" in files
+    assert {PKG / "dist" / "mesh.py", PKG / "dist" / "collectives.py"} <= set(
+        files)
     offenders = [str(f) for f in files if _FORBIDDEN.search(f.read_text())]
     assert offenders == []
     assert _FORBIDDEN.search("from bn254_tpu.fields import limbs")
