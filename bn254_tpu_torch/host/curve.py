@@ -171,7 +171,25 @@ def g1_neg(a):
     return jac_neg(a, FQ_OPS)
 
 
+def _native() -> bool:
+    """True when the C++ host core (csrc/, `native.py`) is to be used. The
+    hot wrappers below dispatch to it; the pure-Python `jac_*` functions
+    remain the oracle and are reachable via the `*_py` aliases."""
+    from . import native as N
+
+    return N.available()
+
+
 def g1_mul(a, k: int):
+    if k >= 0 and _native():
+        from . import native as N
+
+        return affine_to_jac(N.g1_mul(jac_to_affine(a, FQ_OPS), k), FQ_OPS)
+    return jac_scalar_mul(a, k, FQ_OPS)
+
+
+def g1_mul_py(a, k: int):
+    """Pure-Python scalar mul (oracle path, native never consulted)."""
     return jac_scalar_mul(a, k, FQ_OPS)
 
 
@@ -216,6 +234,15 @@ def g2_neg(a):
 
 
 def g2_mul(a, k: int):
+    if k >= 0 and _native():
+        from . import native as N
+
+        return affine_to_jac(N.g2_mul(jac_to_affine(a, FQ2_OPS), k), FQ2_OPS)
+    return jac_scalar_mul(a, k, FQ2_OPS)
+
+
+def g2_mul_py(a, k: int):
+    """Pure-Python scalar mul (oracle path, native never consulted)."""
     return jac_scalar_mul(a, k, FQ2_OPS)
 
 
@@ -244,5 +271,9 @@ def g2_is_in_subgroup(aff) -> bool:
     """Subgroup check: [r]P == identity (G2 has a nontrivial cofactor)."""
     if aff is None:
         return True
+    if _native():
+        from . import native as N
+
+        return N.g2_in_subgroup(aff)
     pt = g2_from_affine(aff)
     return jac_is_identity(jac_scalar_mul(pt, R, FQ2_OPS), FQ2_OPS)

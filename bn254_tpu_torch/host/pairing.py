@@ -7,12 +7,12 @@ canonical pairing exponent — so results are comparable bit-for-bit with any
 correct optimal-ate implementation (including the device pipeline and the
 reference's `pairing_batch`, reference src/ecdsa.rs:57).
 
-This is the oracle/verification path, and the one `protocol/ecdsa.py` runs:
-unlike its twin in the JAX package it has no native C++ dispatch, so
-`pairing` and `pairing_batch` always take the pure-Python path, as
-`host/curve.py` does. The device implementation in `pairing/` uses
-twisted-coordinate line evaluation and a structured final exponentiation
-instead.
+This is the oracle/verification path. As in its twin in the JAX package,
+`pairing` and `pairing_batch` (which `protocol/ecdsa.py` runs) dispatch to
+the native C++ host core (`native.py`) when it is available;
+`pairing_batch_py` is the pure-Python oracle. The device implementation in
+`pairing/` uses twisted-coordinate line evaluation and a structured final
+exponentiation instead.
 """
 
 from __future__ import annotations
@@ -149,10 +149,21 @@ def structured_final_exp(f):
     return F.fq12_mul(F.fq12_mul(t1, y0), F.fq12_sq(F.fq12_mul(t1, y1)))
 
 
+def _native() -> bool:
+    from . import native as N
+
+    return N.available()
+
+
 def pairing(g1_jac, g2_jac):
     """Full pairing e(P, Q) for Jacobian G1/G2 inputs."""
-    return final_exponentiation(
-        miller_loop(twist(g2_to_affine(g2_jac)), g1_to_affine(g1_jac)))
+    p_aff = g1_to_affine(g1_jac)
+    q_aff = g2_to_affine(g2_jac)
+    if _native():
+        from . import native as N
+
+        return N.pairing(p_aff, q_aff)
+    return final_exponentiation(miller_loop(twist(q_aff), p_aff))
 
 
 def pairing_batch(pairs) -> tuple:
@@ -160,13 +171,19 @@ def pairing_batch(pairs) -> tuple:
 
     Mirrors the reference's `pairing_batch(&[(G1, G2)]) -> Gt`
     (reference src/ecdsa.rs:57,86): multiply the per-pair Miller-loop
-    values in Fq12, then run final exponentiation once.
+    values in Fq12, then run final exponentiation once. Dispatches to the
+    native core when it is available; `pairing_batch_py` is the oracle.
     """
+    if _native():
+        from . import native as N
+
+        return N.pairing_product(
+            [(g1_to_affine(p), g2_to_affine(q)) for p, q in pairs])
     return pairing_batch_py(pairs)
 
 
 def pairing_batch_py(pairs) -> tuple:
-    """Pure-Python pairing product (the oracle path)."""
+    """Pure-Python pairing product (oracle path, native never consulted)."""
     acc = F.FQ12_ONE
     for g1_jac, g2_jac in pairs:
         p_aff = g1_to_affine(g1_jac)

@@ -10,7 +10,9 @@ with `ctypes`. Nothing is built when the package is imported, so
 `import bn254_tpu_torch` works on a machine without CUDA.
 
 A failed build raises `KernelBuildError`: there is no fallback to the
-plain torch version for CUDA tensors.
+plain torch version for CUDA tensors. The native host core
+(`host/native.py`) builds its C++ source with g++ through the same
+`digest_path` and `compile_all`.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ NVCC_FLAGS = (
 
 
 class KernelBuildError(RuntimeError):
-    """nvcc is missing or refused a kernel source."""
+    """The compiler is missing or refused a source, or its library does
+    not load."""
 
 
 _lock = threading.Lock()
@@ -73,14 +76,56 @@ def local_headers(src: Path) -> list[Path]:
     return seen
 
 
+def digest_path(src: Path, flags, deps=()) -> Path:
+    """The library file of `src` compiled with `flags`, under BUILD_DIR,
+    named by a digest of the source, the flags and the files of `deps`
+    (the headers it includes)."""
+    h = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
+    for dep in deps:
+        h.update(dep.read_bytes())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
+
+
 def _output(name: str) -> Path:
-    """The library file of `name`, named by a digest of its source, the
-    headers it includes and the flags."""
+    """The library file of kernel `name`."""
     src = SRC_DIR / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    for header in local_headers(src):
-        h.update(header.read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return digest_path(src, NVCC_FLAGS, local_headers(src))
+
+
+def compile_all(jobs) -> dict[str, str]:
+    """Run every job's compiler together. A job is (label, command, src,
+    out): the compiler and its flags, `-o` a temporary file beside `out`,
+    then the source; on success the file replaces `out` atomically, so
+    concurrent builders agree. Returns each label's compiler output;
+    raises KernelBuildError naming every source that failed."""
+    running, errors, logs = [], [], {}
+    try:
+        for label, command, src, out in jobs:
+            out.parent.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+            os.close(fd)
+            running.append((label, command, src, out, tmp, subprocess.Popen(
+                [*command, "-o", tmp, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        for label, command, src, out, tmp, proc in running:
+            stdout, stderr = proc.communicate()
+            if proc.returncode == 0:
+                os.replace(tmp, out)
+                logs[label] = stdout + stderr
+            else:
+                errors.append(f"{os.path.basename(command[0])} failed on "
+                              f"{src.name} (rc={proc.returncode}):\n"
+                              f"{stdout}\n{stderr}")
+    finally:
+        for *_, tmp, proc in running:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    if errors:
+        raise KernelBuildError("\n".join(errors))
+    return logs
 
 
 def build(names) -> None:
@@ -91,33 +136,9 @@ def build(names) -> None:
     todo = [(n, out) for n, out in todo if not out.exists()]
     if not todo:
         return
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    compiler = nvcc()
-    jobs, errors = [], []
-    try:
-        for name, out in todo:
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            jobs.append((name, out, tmp, subprocess.Popen(
-                [compiler, *NVCC_FLAGS, "-o", tmp, str(SRC_DIR / f"{name}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-        for name, out, tmp, proc in jobs:
-            stdout, stderr = proc.communicate()
-            if proc.returncode == 0:
-                os.replace(tmp, out)  # atomic: concurrent builders agree
-                build_log[name] = stdout + stderr
-            else:
-                errors.append(f"nvcc failed on {name}.cu "
-                              f"(rc={proc.returncode}):\n{stdout}\n{stderr}")
-    finally:
-        for _, _, tmp, proc in jobs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    if errors:
-        raise KernelBuildError("\n".join(errors))
+    command = [nvcc(), *NVCC_FLAGS]
+    build_log.update(compile_all(
+        [(n, command, SRC_DIR / f"{n}.cu", out) for n, out in todo]))
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -8,9 +8,10 @@ Reference parity with reference src/ecdsa.rs:
 (The scheme is BLS despite the reference's "ECDSA" name — see lib.rs:8-9 and
 SURVEY.md §0; the class name is kept for API parity.)
 
-These are the single-operation host paths (host/pairing.py's pure-Python
-pairing product). Batched device execution lives in `api` and
-`dist/batch_verify.py`.
+These are the single-operation host paths: host/pairing.py's pairing
+product and host/curve.py's scalar mul, on the native C++ host core when it
+is available (host/native.py), else pure Python. Batched device execution
+lives in `api` and `dist/batch_verify.py`.
 """
 
 from __future__ import annotations

@@ -3,9 +3,20 @@
 
     python3 chip_smoke.py [--batch 8192] [--independent 4096] [--keys 16]
                           [--seed 2026] [--chunked 131072]
+    python3 chip_smoke.py --nccl-world 4
 
-(`--sharded-rank r --sharded-world n --sharded-port p --sharded-fixture f`
-runs one rank of phase 10's gloo group; phase 10 starts them itself.)
+(`--sharded-rank r --sharded-world n --sharded-port p --sharded-fixture f
+--sharded-backend gloo|nccl` runs one rank of a sharded group; phase 10
+and `--nccl-world` start them themselves.)
+
+`--nccl-world n` runs none of the phases below: on n cards it builds phase
+2's kernels, makes phase 8's first 16,384 tuples and phase 10's weights,
+and starts n ranks of the sharded verifier over NCCL, a card each
+(`mesh.initialize`'s default backend on cuda:rank), one-shot and in chunks
+of 8,192: each must accept, accept and reject the last signature swapped
+with exactly `sharded_launches`, and every rank's gathered Fq12 limbs must
+be equal, and equal to the in-process product at the same partition. With
+fewer than n cards it exits non-zero and runs nothing.
 
 Phases, each of which exits non-zero on failure:
 
@@ -24,7 +35,10 @@ Phases, each of which exits non-zero on failure:
    launcher's rule picks at the widths the paths run; the SASS instruction
    counts (cuobjdump, where the toolkit has it) of the kernels over the two
    leaves, cios and cios_wide (the pow windows and the cooperative
-   schedules over cios_wide, miller_dbl_body's G=8 over cios).
+   schedules over cios_wide, miller_dbl_body's G=8 over cios). Then g++
+   builds the native host core (host/native.py over csrc/bn254_host.cpp),
+   with its seconds, before the first host scalar mul; it must be
+   available.
 3. Kernel vs plain.
    - montmul against its plain torch version, bit for bit, on random limbs
      at the main path's widest shape (54 x batch lanes), a lane count that is
@@ -46,7 +60,7 @@ Phases, each of which exits non-zero on failure:
      (acc, sel or both the identity, sel = 2acc, sel = -2acc) at the GLV
      ladder's width.
      Phase 6 adds every further lane count and input bound the paths
-     launched a kernel at, and fails if a launch of phases 4 to 6 or 8 to 10
+     launched a kernel at, and fails if a launch of phases 4 to 6 or 8 to 11
      is left unheld.
 4. The main path through the user entry points: `api.batch_sign` makes
    the signatures of `batch` distinct messages under `keys` keys (8 held
@@ -85,9 +99,10 @@ Phases, each of which exits non-zero on failure:
    exactly its index (fused check and stacked fallback, 130/46/176/130
    step-op launches), the independent tier with three tampered flagged
    exactly through the stacked form at 2 x `independent` lanes, and the
-   key check exact. Then, after the runs of phases 8 to 10, every fused kernel is held
-   against its plain body, as in phase 3, at each further (lane count,
-   input bounds) that the runs of phases 4 to 6 and 8 to 10 launched it at
+   key check exact. Then, after the runs of phases 8 to 11, every fused
+   kernel is held against its plain body, as in phase 3, at each further
+   (lane count, input bounds) that the runs of phases 4 to 6 and 8 to 11
+   launched it at
    (recorded by wrapping `fused.fused_op` and `fused._launch`); every
    (lane count, input bounds) a path launched must have been held so; the
    widths and bound sets held are printed for the kernels over cios_wide
@@ -148,7 +163,9 @@ Phases, each of which exits non-zero on failure:
    signatures swapped) must exit 1 with FAIL on exactly those lines, its
    launches exactly `cli_launch_faults`' table (the independent tier
    through pair2, one square root per message length) and recorded for
-   phase 6's hold; its ms (CUDA events) and api.batch_verify's alone. Then
+   phase 6's hold; its ms (CUDA events) and api.batch_verify's alone. Each
+   CLI step's calls into the native host core must be exactly
+   `CLI_CORE_CALLS` (256 subgroup checks for the batch's keys). Then
    `python -m bn254_tpu_torch batch-verify` with no --device on 16 valid
    lines (rc 0, 16 ok lines) and `examples/batch_verify_gpu.py 16` (rc 0),
    each a process of its own, with their seconds.
@@ -172,6 +189,14 @@ Phases, each of which exits non-zero on failure:
    rank's wall seconds and gather-and-product ms. Every launch of (a) and
    (b) goes into phase 6's hold. Each rank has a time limit; a rank that
    fails fails the script.
+11. The native host core (`host/native.py`): its build seconds and the
+   calls of phase 9's steps; the core against the pure-Python oracle on
+   seeded inputs (G1 and G2 muls at random scalars, 0, R and R + 5, a
+   two-pair pairing product, a random twist point outside the subgroup);
+   host ms in turns, core and oracle (BN254_DISABLE_NATIVE), of
+   ECDSA.verify, 16 PublicKey.from_private_key and 256
+   PublicKey.from_compressed, with exact core calls; the in-process CLI
+   batch-verify again on the oracle and on the core.
 
 It prints a kernels JSON line with every fused kernel on the path that
 launches it (the lane-cooperative ones with their G at each width the
@@ -330,6 +355,23 @@ CLI_KEYS = ("c9afa9d845ba75166b5c215767b1d6934e50c3db36e89b127b8a622b120f6721",
 HASH_SAMPLE = ("0211e028f08c500889891cc294fe758a60e84495ec1e2d0bce208c9fc67b"
                "6486fd")
 CLI_MSG_LENGTHS = (12, 24, 41)
+# each CLI host step's calls into the native host core (host/native.py):
+# a key derivation is one G2 mul, a signature one G1 mul (the hash stays
+# pure Python, as in the JAX package), a compressed key's decode one
+# subgroup check, a verify one pairing product; batch-verify decodes its
+# lines' keys (one subgroup check a line)
+CLI_CORE_CALLS = {"pubkey": {"g2_mul": 1}, "sign": {"g1_mul": 1},
+                  "aggregate-pks": {"g2_in_subgroup": 2},
+                  "aggregate-sigs": {}, "hash-to-g1": {},
+                  "verify": {"g2_in_subgroup": 1, "pairing_product": 1}}
+
+
+def calls_since(before: dict) -> dict:
+    """The native host core's calls, by function, since the counts
+    `before` (only those that rose)."""
+    from bn254_tpu_torch.host import native as N
+
+    return {k: v - before[k] for k, v in N.calls.items() if v != before[k]}
 
 
 def fail(msg: str) -> None:
@@ -437,6 +479,90 @@ def fq12_canon(packed) -> list[int]:
     return [int(v) % P for v in L.to_ints(t)]
 
 
+def config5_fixture(NC: int, CH: int, dev):
+    """bench.py's config-5 fixture (`bench_fused_chunked`), the first NC
+    tuples made on the card in chunks of CH: messages b"bench1m-%08d" % i,
+    K=32 hash candidates (every message must hit), sk_i = ((0x1234567 +
+    977 i) mod 2^30) | 1, the signatures by the G1 ladder of the hash
+    points and the keys by the G2 ladder of the generator (32 bits), then
+    affine; 8 tuples of the first and last chunks held against the host
+    oracle. Returns ((hx, hy, sx, sy, qx, qy), each chunk's hash ms, the
+    seconds, the held indices)."""
+    import numpy as np
+    import torch
+
+    from bn254_tpu_torch.curve import g1 as DG1
+    from bn254_tpu_torch.curve import g2 as DG2
+    from bn254_tpu_torch.curve import jacobian as J
+    from bn254_tpu_torch.fields import limbs as L
+    from bn254_tpu_torch.fields import tower as T
+    from bn254_tpu_torch.hash import tai_batch as TB
+    from bn254_tpu_torch.hash.tai import hash_to_g1
+    from bn254_tpu_torch.host import curve as HC
+    from bn254_tpu_torch.utils import convert as CV
+
+    K5, slab = 32, 8 * CH
+
+    def cat_els(els):
+        return L.El(torch.cat([e.arr for e in els], dim=-1),
+                    max(e.vmax for e in els), max(e.lmax for e in els))
+
+    def host_ints(e, idx):
+        return [int(v) for v in L.to_ints(L.from_mont(
+            L.El(e.arr[:, idx], e.vmax, e.lmax)))]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    msgs5 = [b"bench1m-%08d" % i for i in range(NC)]
+    blocks5, ctr_word, ctr_shift = TB.prepare_blocks_host(msgs5)
+    blocks5 = torch.from_numpy(blocks5.astype(np.int64)).to(dev)
+    sk5 = [((0x1234567 + 977 * i) % (1 << 30)) | 1 for i in range(NC)]
+    cols = []  # per slab: hx, hy, sx, sy, pk x (Fq2), pk y (Fq2)
+    hash_ms = []  # each chunk's hash (bench.py's timed region has it)
+    for off in range(0, NC, slab):
+        hs = []
+        for c in range(off, min(off + slab, NC), CH):
+            (hx, hy, found, _), ms = events_ms(
+                torch, lambda: TB.hash_to_g1_batch(
+                    blocks5[c:c + CH], ctr_word, ctr_shift, K5))
+            hash_ms.append(ms)
+            if not bool(found.all()):
+                fail(f"chunked fixture: a hash miss in chunk {c // CH}")
+            hs.append((hx, hy))
+        hx, hy = (cat_els([h[i] for h in hs]) for i in range(2))
+        n = hx.batch_shape[-1]
+        sk = CV.scalars_to_device(sk5[off:off + n], dev)
+        sx, sy, inf_s = DG1.to_affine(DG1.scalar_mul(
+            J.JPoint(hx, hy, L.mont_one((n,), dev)), sk, 32))
+        qx, qy, inf_q = DG2.to_affine(DG2.scalar_mul(
+            DG2.generator((n,), dev), sk, 32))
+        if bool(inf_s.any()) or bool(inf_q.any()):
+            fail("chunked fixture: an identity signature or key")
+        cols.append((hx, hy, sx, sy, qx, qy))
+    hx5, hy5, sx5, sy5 = (cat_els([c[i] for c in cols]) for i in range(4))
+    qx5, qy5 = (T.Fq2(cat_els([c[i].c0 for c in cols]),
+                      cat_els([c[i].c1 for c in cols])) for i in (4, 5))
+    del cols, hs, blocks5
+    torch.cuda.synchronize()
+    fixture_s = time.perf_counter() - t0
+    sample = [0, 1, CH // 2, CH - 1, NC - CH, NC - CH + 1, NC - 2, NC - 1]
+    got_h = list(zip(host_ints(hx5, sample), host_ints(hy5, sample)))
+    got_s = list(zip(host_ints(sx5, sample), host_ints(sy5, sample)))
+    got_q = list(zip(zip(host_ints(qx5.c0, sample),
+                         host_ints(qx5.c1, sample)),
+                     zip(host_ints(qy5.c0, sample),
+                         host_ints(qy5.c1, sample))))
+    for j, i in enumerate(sample):
+        h = hash_to_g1(msgs5[i])
+        if (got_h[j] != HC.g1_to_affine(h)
+                or got_s[j] != HC.g1_to_affine(HC.g1_mul(h, sk5[i]))
+                or got_q[j] != HC.g2_to_affine(
+                    HC.g2_mul(HC.G2_ONE, sk5[i]))):
+            fail(f"chunked fixture: tuple {i} disagrees with the host "
+                 "oracle")
+    return (hx5, hy5, sx5, sy5, qx5, qy5), hash_ms, fixture_s, sample
+
+
 def ptxas_summary(log: str) -> list[str]:
     """Registers, stack frame and spills of each kernel entry in a
     `-Xptxas=-v` report."""
@@ -509,8 +635,10 @@ SHARDED_TIMEOUT_S = 300  # phase 10b: a rank's collectives and its process
 
 
 def sharded_worker(args) -> int:
-    """Phase 10b's rank: `make_sharded_verifier` over the gloo group of
-    `--sharded-world` ranks on this card, on the full batch saved in
+    """One rank of phase 10b (gloo, the ranks on one card) or of the
+    `--nccl-world` mode (NCCL, a card a rank): `make_sharded_verifier` over
+    the `--sharded-backend` group of `--sharded-world` ranks, on the full
+    batch saved in
     `--sharded-fixture`: one-shot, in chunks, and with the last signature
     swapped, each with its launch counts and (lane count, input bounds);
     then the gather-and-product alone. Prints one SHARDED-RESULT JSON line
@@ -539,17 +667,22 @@ def sharded_worker(args) -> int:
               "run from the root of the repository", file=sys.stderr)
         return 3
     rank, world = args.sharded_rank, args.sharded_world
+    backend = args.sharded_backend
     if not all(build._output(n).exists() for n in ("montmul", "fused")):
         fail(f"rank {rank}: the kernels are not built (phase 2 builds them "
              "before the ranks start; a rank starts no nvcc)")
+    # NCCL: initialize's default backend on cuda:rank; gloo: asked for,
+    # so that several ranks share one card
     if not MESH.initialize(coordinator_address=f"127.0.0.1:{args.sharded_port}",
                            num_processes=world, process_id=rank,
-                           backend="gloo", timeout=SHARDED_TIMEOUT_S):
+                           backend=None if backend == "nccl" else "gloo",
+                           timeout=SHARDED_TIMEOUT_S):
         fail(f"rank {rank}: no process group was started")
     try:
         mesh = MESH.make_mesh()
         if (mesh.size, mesh.rank, mesh.backend, mesh.device) != (
-                world, rank, "gloo", torch.device("cuda", 0)):
+                world, rank, backend,
+                torch.device("cuda", rank % torch.cuda.device_count())):
             fail(f"rank {rank}: mesh {mesh}")
         fx = torch.load(args.sharded_fixture, map_location=mesh.device,
                         weights_only=True)
@@ -600,6 +733,116 @@ def sharded_worker(args) -> int:
     return 0
 
 
+def sharded_weights(n: int, seed: int, dev):
+    """Phase 10's 128-bit GLV weights for n tuples from a seeded generator
+    (the first (1, 0))."""
+    import random
+
+    from bn254_tpu_torch.curve import glv as GLV
+
+    wrng = random.Random(seed)
+    return GLV.glv_weights_to_device(
+        [(1, 0)] + [(wrng.getrandbits(64), wrng.getrandbits(64))
+                    for _ in range(n - 1)], 128, dev)
+
+
+def sharded_ranks(world: int, backend: str, full, w, chunk: int,
+                  products: dict, run_launches: dict, widths: dict):
+    """`world` processes of this script (`sharded_worker`, one rank each,
+    over `backend`) on the full batch `full` with weights `w`, saved once
+    with torch.save: one-shot, in chunks of `chunk` and with the last
+    signature swapped. Each rank must accept, accept and reject, with
+    exactly `sharded_launches` for its shards; all ranks' gathered Fq12
+    limbs must be equal, and equal by canonical value to `products` (the
+    in-process Miller product at the matching partition, by "oneshot" and
+    "chunked"). Each launch's (lane count, input bounds) goes into
+    `run_launches` and `widths`. Returns (each rank's SHARDED-RESULT,
+    the ranks' wall seconds)."""
+    import socket
+    import tempfile
+
+    import torch
+
+    from bn254_tpu_torch.dist import collectives as COLL
+    from bn254_tpu_torch.fields import limbs as L
+    from bn254_tpu_torch.kernels import fused as FK
+
+    n = full[0].batch_shape[-1]
+    shard = n // world
+    with tempfile.TemporaryDirectory() as tmp:
+        fixture = pathlib.Path(tmp) / "sharded_fixture.pt"
+        leaves = L.tree_leaves(full)
+        torch.save({"arrs": [e.arr.cpu() for e in leaves],
+                    "bounds": [(e.vmax, e.lmax) for e in leaves],
+                    "wa": w.a.arr.cpu(), "wb": w.b.arr.cpu(),
+                    "w_bounds": (w.a.vmax, w.a.lmax), "bits": w.bits,
+                    "chunk": chunk}, fixture)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        root = pathlib.Path(__file__).resolve().parent
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(root / "chip_smoke.py"), "--sharded-rank",
+             str(r), "--sharded-world", str(world), "--sharded-port",
+             str(port), "--sharded-fixture", str(fixture),
+             "--sharded-backend", backend],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for r in range(world)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=SHARDED_TIMEOUT_S))
+        except subprocess.TimeoutExpired:
+            fail(f"sharded ranks ({backend}, world {world}): a rank did not "
+                 f"finish in {SHARDED_TIMEOUT_S} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks_s = time.perf_counter() - t0
+    who = f"sharded ranks ({backend}, world {world})"
+    results = []
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        lines_ = [x for x in out.splitlines()
+                  if x.startswith("SHARDED-RESULT ")]
+        if p.returncode != 0 or len(lines_) != 1:
+            fail(f"{who}: rank {r} rc {p.returncode}, stdout "
+                 f"{out[-600:]!r}, stderr {err[-1500:]!r}")
+        results.append(json.loads(lines_[0][len("SHARDED-RESULT "):]))
+    want = {"oneshot": sharded_launches(world, 1, shard),
+            "chunked": sharded_launches(world, n // chunk,
+                                        chunk // world)}
+    want["swapped"] = want["oneshot"]
+    for r, res in enumerate(results):
+        if (res["rank"], res["world"]) != (r, world) or not res["oneshot_ok"] \
+                or not res["chunked_ok"] or res["swapped_ok"]:
+            fail(f"{who}: rank {r} accepted {res['oneshot_ok']} "
+                 f"(one-shot) / {res['chunked_ok']} (chunks of {chunk}), "
+                 f"{res['swapped_ok']} with the last signature swapped")
+        for tag, want_t in want.items():
+            got = res["launches"][tag]
+            if {k: got[k] for k in FK.KERNELS} != {
+                    **dict.fromkeys(FK.KERNELS, 0), **want_t} \
+                    or not got["montmul"]:
+                fail(f"{who}: rank {r}'s {tag} launches "
+                     f"{json.dumps(got)}, want {json.dumps(want_t)}")
+        for key, seen in res["widths"].items():
+            for n, bounds in seen:
+                for d in (run_launches, widths):
+                    d.setdefault(key, set()).add(
+                        (n, tuple(tuple(b) for b in bounds)))
+    for tag, f_in in products.items():
+        limbs = [res["products"][tag] for res in results]
+        if any(x != limbs[0] for x in limbs) or fq12_canon(
+                limbs[0]) != fq12_canon(COLL.pack(f_in)):
+            fail(f"{who}: the ranks' {tag} products differ from each "
+                 "other or from the in-process product at the same "
+                 "partition")
+    return results, ranks_s
+
+
 def sharded_phase(args, card: str, inputs, run_launches: dict) -> dict:
     """Phase 10: `make_sharded_verifier` on the first SHARDED_TUPLES
     (16,384) tuples of `inputs` (phase 8's fixture) with 128-bit GLV
@@ -609,14 +852,10 @@ def sharded_phase(args, card: str, inputs, run_launches: dict) -> dict:
     in-process products. Every launch's (lane count, input bounds) goes
     into `run_launches` for the final hold; returns each run's launches."""
     import datetime
-    import random
-    import socket
-    import tempfile
 
     import torch
     import torch.distributed as dist
 
-    from bn254_tpu_torch.curve import glv as GLV
     from bn254_tpu_torch.dist import batch_verify as BV
     from bn254_tpu_torch.dist import collectives as COLL
     from bn254_tpu_torch.dist import mesh as MESH
@@ -630,10 +869,7 @@ def sharded_phase(args, card: str, inputs, run_launches: dict) -> dict:
     t10 = time.perf_counter()
     NS = min(SHARDED_TUPLES, inputs[0].batch_shape[-1])
     C10 = NS // 2  # the one-shot batch and the chunk
-    wrng = random.Random(args.seed)
-    w10 = GLV.glv_weights_to_device(
-        [(1, 0)] + [(wrng.getrandbits(64), wrng.getrandbits(64))
-                    for _ in range(NS - 1)], 128, dev)
+    w10 = sharded_weights(NS, args.seed, dev)
 
     def first(n, xs):
         return tuple(BV._slice_batch(x, slice(0, n)) for x in xs)
@@ -738,73 +974,10 @@ def sharded_phase(args, card: str, inputs, run_launches: dict) -> dict:
           f"({packed.numel() * 8} bytes) {gather_ms:.4f} ms")
 
     # 10b: two ranks on this card over gloo, each a process of this script
-    with tempfile.TemporaryDirectory() as tmp:
-        fixture = pathlib.Path(tmp) / "sharded_fixture.pt"
-        leaves = L.tree_leaves(full10)
-        torch.save({"arrs": [e.arr.cpu() for e in leaves],
-                    "bounds": [(e.vmax, e.lmax) for e in leaves],
-                    "wa": w10.a.arr.cpu(), "wb": w10.b.arr.cpu(),
-                    "w_bounds": (w10.a.vmax, w10.a.lmax), "bits": w10.bits,
-                    "chunk": C10}, fixture)
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            port = sock.getsockname()[1]
-        root = pathlib.Path(__file__).resolve().parent
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, str(root / "chip_smoke.py"), "--sharded-rank",
-             str(r), "--sharded-world", "2", "--sharded-port", str(port),
-             "--sharded-fixture", str(fixture)],
-            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True) for r in range(2)]
-        outs = []
-        try:
-            for p in procs:
-                outs.append(p.communicate(timeout=SHARDED_TIMEOUT_S))
-        except subprocess.TimeoutExpired:
-            fail(f"sharded 10b: a rank did not finish in {SHARDED_TIMEOUT_S} s")
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        ranks_s = time.perf_counter() - t0
-    results = []
-    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
-        lines_ = [x for x in out.splitlines()
-                  if x.startswith("SHARDED-RESULT ")]
-        if p.returncode != 0 or len(lines_) != 1:
-            fail(f"sharded 10b: rank {r} rc {p.returncode}, stdout "
-                 f"{out[-600:]!r}, stderr {err[-1500:]!r}")
-        results.append(json.loads(lines_[0][len("SHARDED-RESULT "):]))
-    want_b = {"oneshot": sharded_launches(2, 1, C10),
-              "chunked": sharded_launches(2, 2, C10 // 2)}
-    want_b["swapped"] = want_b["oneshot"]
-    for r, res in enumerate(results):
-        if (res["rank"], res["world"]) != (r, 2) or not res["oneshot_ok"] \
-                or not res["chunked_ok"] or res["swapped_ok"]:
-            fail(f"sharded 10b: rank {r} accepted {res['oneshot_ok']} "
-                 f"(one-shot) / {res['chunked_ok']} (chunks of {C10}), "
-                 f"{res['swapped_ok']} with the last signature swapped")
-        for tag, want in want_b.items():
-            got = res["launches"][tag]
-            if {k: got[k] for k in FK.KERNELS} != {
-                    **dict.fromkeys(FK.KERNELS, 0), **want} \
-                    or not got["montmul"]:
-                fail(f"sharded 10b: rank {r}'s {tag} launches "
-                     f"{json.dumps(got)}, want {json.dumps(want)}")
-        for key, seen in res["widths"].items():
-            for n, bounds in seen:
-                for d in (run_launches, sharded_widths):
-                    d.setdefault(key, set()).add(
-                        (n, tuple(tuple(b) for b in bounds)))
-    for tag, f_in in (("oneshot", f_b), ("chunked", f_c)):
-        limbs = [res["products"][tag] for res in results]
-        if limbs[0] != limbs[1] or fq12_canon(limbs[0]) != fq12_canon(
-                COLL.pack(f_in)):
-            fail(f"sharded 10b: the ranks' {tag} products differ from each "
-                 "other or from the in-process chunked product")
-    for tag in want_b:
+    results, ranks_s = sharded_ranks(2, "gloo", full10, w10, C10,
+                                     {"oneshot": f_b, "chunked": f_c},
+                                     run_launches, sharded_widths)
+    for tag in ("oneshot", "chunked", "swapped"):
         sharded_counts[f"gloo_world2_{tag}"] = results[0]["launches"][tag]
     print(f"sharded 10b (gloo, 2 ranks on {card}): {NS} tuples one-shot "
           f"(a shard of {C10}) and in chunks of {C10} (shards of {C10 // 2}) "
@@ -821,6 +994,205 @@ def sharded_phase(args, card: str, inputs, run_launches: dict) -> dict:
     return sharded_counts
 
 
+def host_core_phase(card: str, seed: int, build_s: float, phase9_calls: dict,
+                    cli_ms: float, cli_batch_verify) -> dict:
+    """Phase 11: the native host core (host/native.py over
+    csrc/bn254_host.cpp). It must be available; the calls of phase 9's CLI
+    steps are printed; the core is held against the pure-Python oracle
+    (`g1_mul_py`, `g2_mul_py`, `pairing_batch_py`, `jac_scalar_mul(., R)`)
+    on seeded inputs: G1 and G2 scalar muls at random scalars, 0, R and
+    R + 5, a two-pair pairing product, a random twist point outside the
+    subgroup. Then host ms in turns (core, oracle, core, oracle; the
+    oracle under BN254_DISABLE_NATIVE) of ECDSA.verify, 16
+    PublicKey.from_private_key and 256 PublicKey.from_compressed, each
+    turn's results equal and its core calls exact; and the in-process CLI
+    batch-verify of phase 9 on the oracle, then on the core again
+    (`cli_batch_verify`), beside phase 9's `cli_ms`. Returns the times."""
+    import os
+    import random
+
+    from bn254_tpu_torch import ECDSA, PrivateKey, PublicKey
+    from bn254_tpu_torch.constants import P, R
+    from bn254_tpu_torch.host import curve as HC
+    from bn254_tpu_torch.host import field as HF
+    from bn254_tpu_torch.host import native as N
+    from bn254_tpu_torch.host import pairing as HP
+
+    t11 = time.perf_counter()
+    if not N.available():
+        fail("host core: not available (BN254_DISABLE_NATIVE set, or no C++ "
+             "compiler)")
+    print(f"host core: {N.output().name}, built in {build_s:.2f} s (phase "
+          f"2); calls a CLI step in phase 9 {json.dumps(phase9_calls)}; "
+          f"calls of the run so far {json.dumps(N.calls)}")
+
+    # held against the oracle on seeded inputs
+    rng = random.Random(seed)
+    before = dict(N.calls)
+    ks = [rng.randrange(R), rng.randrange(R), 0, R, R + 5]
+    g1 = HC.g1_mul_py(HC.G1_ONE, rng.randrange(1, R))
+    g2 = HC.g2_mul_py(HC.G2_ONE, rng.randrange(1, R))
+    for k in ks:
+        if HC.g1_to_affine(HC.g1_mul(g1, k)) != HC.g1_to_affine(
+                HC.g1_mul_py(g1, k)) or HC.g2_to_affine(HC.g2_mul(
+                    g2, k)) != HC.g2_to_affine(HC.g2_mul_py(g2, k)):
+            fail(f"host core: a scalar mul by {k} differs from the oracle")
+    pairs = [(HC.g1_mul_py(HC.G1_ONE, rng.randrange(1, R)),
+              HC.g2_mul_py(HC.G2_ONE, rng.randrange(1, R))) for _ in range(2)]
+    if not HF.fq12_eq(HP.pairing_batch(pairs), HP.pairing_batch_py(pairs)):
+        fail("host core: the two-pair pairing product differs from the oracle")
+    while True:  # a random point of the twist, almost surely outside G2
+        x = (rng.randrange(P), rng.randrange(P))
+        y = HF.fq2_sqrt(HF.fq2_add(HF.fq2_mul(HF.fq2_sq(x), x), HC.B2))
+        if y is not None:
+            break
+    if HC.g2_is_in_subgroup((x, y)) or HC.jac_is_identity(HC.jac_scalar_mul(
+            HC.g2_from_affine((x, y)), R, HC.FQ2_OPS), HC.FQ2_OPS):
+        fail("host core: a random twist point was reported in the subgroup")
+    held = calls_since(before)
+    if held != {"g1_mul": len(ks), "g2_mul": len(ks), "pairing_product": 1,
+                "g2_in_subgroup": 1}:
+        fail(f"host core: the holds' calls into the core {held}")
+    print(f"host core: equal to the oracle on G1 and G2 muls by {len(ks)} "
+          "scalars (random, 0, R, R + 5), a two-pair pairing product, and a "
+          f"random twist point outside the subgroup; calls {json.dumps(held)}")
+
+    @contextlib.contextmanager
+    def path(form):
+        if form == "oracle":
+            os.environ["BN254_DISABLE_NATIVE"] = "1"
+        try:
+            yield
+        finally:
+            os.environ.pop("BN254_DISABLE_NATIVE", None)
+
+    sks = [PrivateKey(rng.randrange(1, R)) for _ in range(16)]
+    pk0 = PublicKey.from_private_key(sks[0])
+    sig0 = ECDSA.sign(b"host-core", sks[0])
+    encoded = [PublicKey.from_private_key(k).to_compressed() for k in sks]
+    ops = {  # name: (fn, its calls into the core)
+        "verify": (lambda: ECDSA.verify(b"host-core", sig0, pk0),
+                   {"pairing_product": 1}),
+        "from_private_key_16": (lambda: [
+            PublicKey.from_private_key(k).to_compressed() for k in sks],
+            {"g2_mul": 16}),
+        "from_compressed_256": (lambda: [
+            PublicKey.from_compressed(encoded[i % 16]).to_compressed()
+            for i in range(256)], {"g2_in_subgroup": 256}),
+    }
+    times = {}
+    for name, (fn, want) in ops.items():
+        times[name] = {"core": [], "oracle": []}
+        outs = []
+        for form in ("core", "oracle", "core", "oracle"):
+            before = dict(N.calls)
+            with path(form):
+                t0 = time.perf_counter()
+                outs.append(fn())
+                times[name][form].append((time.perf_counter() - t0) * 1e3)
+            got = calls_since(before)
+            if got != (want if form == "core" else {}):
+                fail(f"host core: {name} on the {form} called the core "
+                     f"{got}")
+        if any(o != outs[0] for o in outs):
+            fail(f"host core: {name} differs between the core and the oracle")
+    cli = {"core": [cli_ms], "oracle": []}
+    for form in ("oracle", "core"):
+        with path(form):
+            ms, got = cli_batch_verify()
+        if got != ({"g2_in_subgroup": 256} if form == "core" else {}):
+            fail(f"host core: the CLI batch-verify on the {form} called the "
+                 f"core {got}")
+        cli[form].append(ms)
+    times["cli_batch_verify_256"] = cli
+    times["phase_s"] = time.perf_counter() - t11
+    print(f"host core on {card}: host ms in turns (core, oracle, core, "
+          "oracle; the CLI's in-process 256-line batch-verify: phase 9's "
+          "core run, then oracle, core) " + json.dumps(times))
+    return times
+
+
+def nccl_world(args) -> int:
+    """`--nccl-world n`: the sharded verifier over NCCL, n ranks, a card
+    each. Builds phase 2's kernels, makes phase 8's first SHARDED_TUPLES
+    (16,384) tuples and phase 10's weights on cuda:0, and computes the
+    in-process Miller products at the partitions the ranks run
+    (`verify_batch_fused_chunked` in chunks of one shard); then n processes
+    of this script (`sharded_worker`, each `mesh.initialize` with its
+    default backend, NCCL on cuda:rank) must each accept one-shot and in
+    chunks of 8,192 and reject the last signature swapped, with exactly
+    `sharded_launches`, and gather the same Fq12 limbs, equal to the
+    in-process products. With fewer than n cards it runs nothing and exits
+    non-zero: it falls back neither to gloo nor to fewer ranks."""
+    t_start = time.perf_counter()
+    import torch
+
+    world = args.nccl_world
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card only",
+              file=sys.stderr)
+        return 2
+    cards = torch.cuda.device_count()
+    if world < 2 or cards < world:
+        print(f"chip_smoke: --nccl-world {world} needs {max(world, 2)} cards, "
+              f"one a rank; this machine has {cards}", file=sys.stderr)
+        return 2
+    try:
+        from bn254_tpu_torch.dist import batch_verify as BV
+        from bn254_tpu_torch.kernels import build
+    except ImportError as e:
+        print(f"chip_smoke: the bn254_tpu_torch package is missing ({e}); "
+              "run from the root of the repository", file=sys.stderr)
+        return 3
+    card = card_line()
+    print(card)
+    print(f"cards: {cards} | torch {torch.__version__} | CUDA "
+          f"{torch.version.cuda} | NCCL "
+          f"{'.'.join(map(str, torch.cuda.nccl.version()))}")
+    t0 = time.perf_counter()
+    try:
+        build.build(["montmul", "fused"])
+    except build.KernelBuildError as e:
+        fail(str(e))
+    print(f"build: montmul.cu and fused.cu in {time.perf_counter() - t0:.2f} "
+          "s wall")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    NS = SHARDED_TUPLES
+    with torch.inference_mode():
+        full, _, fixture_s, sample = config5_fixture(NS, CONFIG5_CHUNK, dev)
+        w = sharded_weights(NS, args.seed, dev)
+        products = {}
+        for tag, c in (("oneshot", NS // world),
+                       ("chunked", CONFIG5_CHUNK // world)):
+            seen = []
+            with final_exp_inputs(seen):
+                if not bool(BV.verify_batch_fused_chunked(*full, w, chunk=c)):
+                    fail(f"verify_batch_fused_chunked in chunks of {c} "
+                         "rejected the valid batch")
+            products[tag] = seen[0]
+    print(f"nccl fixture: {NS} tuples on cuda:0 in {fixture_s:.2f} s, tuples "
+          f"{sample} agree with the host oracle; in-process products in "
+          f"chunks of {NS // world} and {CONFIG5_CHUNK // world}")
+    results, ranks_s = sharded_ranks(world, "nccl", full, w, CONFIG5_CHUNK,
+                                     products, {}, {})
+    print(f"nccl world {world} ({cards} x {card}): {NS} tuples one-shot "
+          f"(shards of {NS // world}) and in chunks of {CONFIG5_CHUNK} "
+          f"(shards of {CONFIG5_CHUNK // world}) accepted, the last signature "
+          "swapped rejected, on every rank; launches exact; the same "
+          "gathered Fq12 limbs on every rank, equal to the in-process "
+          "products by canonical value")
+    print(json.dumps({"nccl_world": world, "cards": cards, "card": card,
+                      "ranks_wall_s": ranks_s,
+                      "rank_wall_s": [r["wall_s"] for r in results],
+                      "rank_run_s": [r["seconds"] for r in results],
+                      "gather_product_ms": [r["gather_product_ms"]
+                                            for r in results],
+                      "launches_rank0": results[0]["launches"],
+                      "wall_s": time.perf_counter() - t_start}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=8192)
@@ -832,15 +1204,23 @@ def main() -> int:
     ap.add_argument("--chunked", type=int, default=16 * CONFIG5_CHUNK,
                     help="tuples of the chunked config-5 phase, in chunks of "
                          "8,192 (BASELINE config 5 runs 1,048,576)")
+    ap.add_argument("--nccl-world", type=int, default=None,
+                    help="instead of the phases: the sharded verifier over "
+                         "NCCL with this many ranks, a card each (needs as "
+                         "many cards), and exit")
     ap.add_argument("--sharded-rank", type=int, default=None,
-                    help="run as this rank of phase 10's gloo group "
-                         "(started by phase 10 itself) and exit")
+                    help="run as this rank of a sharded group (started by "
+                         "phase 10 or --nccl-world itself) and exit")
     ap.add_argument("--sharded-world", type=int, default=2)
     ap.add_argument("--sharded-port", type=int, default=0)
     ap.add_argument("--sharded-fixture", default=None)
+    ap.add_argument("--sharded-backend", choices=("gloo", "nccl"),
+                    default="gloo")
     args = ap.parse_args()
     if args.sharded_rank is not None:
         return sharded_worker(args)
+    if args.nccl_world is not None:
+        return nccl_world(args)
     t_start = time.perf_counter()
     chunk = min(CONFIG5_CHUNK, args.chunked // 2)
     if chunk < 1 or args.chunked % chunk:
@@ -859,8 +1239,6 @@ def main() -> int:
         from bn254_tpu_torch import api
         from bn254_tpu_torch import config as C
         from bn254_tpu_torch.constants import MONT_R, NLIMBS, P, R
-        from bn254_tpu_torch.curve import g1 as DG1
-        from bn254_tpu_torch.curve import g2 as DG2
         from bn254_tpu_torch.curve import jacobian as J
         from bn254_tpu_torch.curve.ops import FqOps
         from bn254_tpu_torch.dist import batch_verify as BV
@@ -868,9 +1246,9 @@ def main() -> int:
         from bn254_tpu_torch.fields import limbs as L
         from bn254_tpu_torch.fields import tower as T
         from bn254_tpu_torch.hash.tai import hash_to_g1
-        from bn254_tpu_torch.hash import tai_batch as TB
         from bn254_tpu_torch.hash.tai_batch import hash_to_g1_device
         from bn254_tpu_torch.host import curve as HC
+        from bn254_tpu_torch.host import native as NATIVE
         from bn254_tpu_torch.kernels import build
         from bn254_tpu_torch.kernels import fused as FK
         from bn254_tpu_torch.kernels import montmul as MK
@@ -911,6 +1289,20 @@ def main() -> int:
     for lib in ("montmul", "fused"):
         for line in ptxas_summary(build.build_log.get(lib, "")):
             print(f"build: ptxas: {line}")
+    # the native host core (host/native.py over csrc/bn254_host.cpp), before
+    # the first host scalar mul of the fixtures
+    t0 = time.perf_counter()
+    try:
+        NATIVE.library()
+    except build.KernelBuildError as e:
+        fail(str(e))
+    core_build_s = time.perf_counter() - t0
+    if not NATIVE.available():
+        fail("the native host core is not available (BN254_DISABLE_NATIVE "
+             "set, or no C++ compiler)")
+    print(f"build: the native host core {NATIVE.output().name} "
+          f"({NATIVE.compiler()}, {' '.join(NATIVE.CXX_FLAGS)}) in "
+          f"{core_build_s:.2f} s wall")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     K = C.DEFAULT.k_candidates
 
@@ -1391,74 +1783,18 @@ def main() -> int:
     # card as bench.py makes it (K=32 hash candidates, sk_i small odd ints,
     # signatures and public keys by the device ladders, 32 bits)
     NC, CH = args.chunked, chunk
-    n_ch, K5, slab = NC // CH, 32, 8 * CH
-
-    def cat_els(els):
-        return L.El(torch.cat([e.arr for e in els], dim=-1),
-                    max(e.vmax for e in els), max(e.lmax for e in els))
-
-    def host_ints(e, idx):
-        return [int(v) for v in L.to_ints(L.from_mont(
-            L.El(e.arr[:, idx], e.vmax, e.lmax)))]
+    n_ch = NC // CH
 
     chunked_widths = {}  # the (lanes, bounds) of this phase's launches
     with torch.inference_mode(), \
             launches_recorded(run_launches, chunked_widths):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        msgs5 = [b"bench1m-%08d" % i for i in range(NC)]
-        blocks5, ctr_word, ctr_shift = TB.prepare_blocks_host(msgs5)
-        blocks5 = torch.from_numpy(blocks5.astype(np.int64)).to(dev)
-        sk5 = [((0x1234567 + 977 * i) % (1 << 30)) | 1 for i in range(NC)]
-        cols = []  # per slab: hx, hy, sx, sy, pk x (Fq2), pk y (Fq2)
-        hash_ms = []  # each chunk's hash (bench.py's timed region has it)
-        for off in range(0, NC, slab):
-            hs = []
-            for c in range(off, min(off + slab, NC), CH):
-                (hx, hy, found, _), ms = events_ms(
-                    torch, lambda: TB.hash_to_g1_batch(
-                        blocks5[c:c + CH], ctr_word, ctr_shift, K5))
-                hash_ms.append(ms)
-                if not bool(found.all()):
-                    fail(f"chunked fixture: a hash miss in chunk {c // CH}")
-                hs.append((hx, hy))
-            hx, hy = (cat_els([h[i] for h in hs]) for i in range(2))
-            n = hx.batch_shape[-1]
-            sk = CV.scalars_to_device(sk5[off:off + n], dev)
-            sx, sy, inf_s = DG1.to_affine(DG1.scalar_mul(
-                J.JPoint(hx, hy, L.mont_one((n,), dev)), sk, 32))
-            qx, qy, inf_q = DG2.to_affine(DG2.scalar_mul(
-                DG2.generator((n,), dev), sk, 32))
-            if bool(inf_s.any()) or bool(inf_q.any()):
-                fail("chunked fixture: an identity signature or key")
-            cols.append((hx, hy, sx, sy, qx, qy))
-        hx5, hy5, sx5, sy5 = (cat_els([c[i] for c in cols]) for i in range(4))
-        qx5, qy5 = (T.Fq2(cat_els([c[i].c0 for c in cols]),
-                          cat_els([c[i].c1 for c in cols])) for i in (4, 5))
-        del cols, hs, blocks5
-        torch.cuda.synchronize()
-        fixture_s = time.perf_counter() - t0
-        sample = [0, 1, CH // 2, CH - 1, NC - CH, NC - CH + 1, NC - 2, NC - 1]
-        got_h = list(zip(host_ints(hx5, sample), host_ints(hy5, sample)))
-        got_s = list(zip(host_ints(sx5, sample), host_ints(sy5, sample)))
-        got_q = list(zip(zip(host_ints(qx5.c0, sample),
-                             host_ints(qx5.c1, sample)),
-                         zip(host_ints(qy5.c0, sample),
-                             host_ints(qy5.c1, sample))))
-        for j, i in enumerate(sample):
-            h = hash_to_g1(msgs5[i])
-            if (got_h[j] != HC.g1_to_affine(h)
-                    or got_s[j] != HC.g1_to_affine(HC.g1_mul(h, sk5[i]))
-                    or got_q[j] != HC.g2_to_affine(
-                        HC.g2_mul(HC.G2_ONE, sk5[i]))):
-                fail(f"chunked fixture: tuple {i} disagrees with the host "
-                     "oracle")
+        inputs5, hash_ms, fixture_s, sample = config5_fixture(NC, CH, dev)
+        hx5, hy5, sx5, sy5, qx5, qy5 = inputs5
         print(f"chunked fixture: {NC} tuples ({n_ch} chunks of {CH}; "
               f"config 5's 1,048,576 cut to {NC}) made on the card in "
-              f"{fixture_s:.2f} s, K={K5}; tuples {sample} agree with the "
+              f"{fixture_s:.2f} s, K=32; tuples {sample} agree with the "
               "host oracle")
 
-        inputs5 = (hx5, hy5, sx5, sy5, qx5, qy5)
         w5 = BV.random_weights(NC, 128, dev)
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
@@ -1510,12 +1846,16 @@ def main() -> int:
         in this process with stdin and stdout redirected."""
         out, saved_in = io.StringIO(), sys.stdin
         sys.stdin = io.StringIO(stdin)
+        before = dict(NATIVE.calls)
         try:
             with contextlib.redirect_stdout(out):
                 rc = cli(argv)
         finally:
             sys.stdin = saved_in
+        cli_core_calls.append((argv[0], calls_since(before)))
         return rc, out.getvalue()
+
+    cli_core_calls = []  # (step, its calls into the host core) of each call
 
     # the host flows: two fixed keys (the reference's example), their
     # aggregate accepted on its message and rejected on another
@@ -1533,9 +1873,19 @@ def main() -> int:
     if run_cli(["hash-to-g1", "sample"]) != (0, HASH_SAMPLE + "\n"):
         fail("CLI: hash-to-g1 of 'sample' differs from the reference's "
              "golden value")
+    wrong = [(step, got) for step, got in cli_core_calls
+             if got != CLI_CORE_CALLS[step]]
+    if wrong:
+        fail(f"CLI host steps: calls into the native host core {wrong}, want "
+             f"{json.dumps(CLI_CORE_CALLS)} a step")
+    phase9_core_calls = {}  # each call's, by step
+    for step, got in cli_core_calls:
+        phase9_core_calls.setdefault(step, []).append(got)
     print("cli: pubkey, sign, aggregate-pks, aggregate-sigs and verify on two "
           "keys: the aggregate accepted on its message, rejected (rc 1) on "
-          "another; hash-to-g1 'sample' = the golden " + HASH_SAMPLE)
+          "another; hash-to-g1 'sample' = the golden " + HASH_SAMPLE
+          + "; calls into the native host core a step "
+          + json.dumps(phase9_core_calls))
 
     # batch-verify in process: NB tuples under 16 keys, messages of three
     # lengths, signed on the card by api.batch_sign, three signatures swapped
@@ -1581,6 +1931,23 @@ def main() -> int:
     if rc != 1 or out.splitlines() != want_lines:
         fail(f"CLI batch-verify: rc {rc}, FAIL on lines {flagged}, want rc 1 "
              f"and FAIL on exactly {cli_bad}")
+    if cli_core_calls[-1] != ("batch-verify", {"g2_in_subgroup": NB}):
+        fail(f"CLI batch-verify: calls into the native host core "
+             f"{cli_core_calls[-1][1]}, want {NB} g2_in_subgroup (one key "
+             "decode a line)")
+    phase9_core_calls["batch-verify"] = [cli_core_calls[-1][1]]
+
+    def cli_batch_verify():
+        """ms (CUDA events) of one more in-process batch-verify over the NB
+        lines, with its calls into the host core; rc 1 and FAIL on exactly
+        the swapped lines, its launches recorded for the final hold."""
+        with launches_recorded(run_launches):
+            (rc_, out_), ms = events_ms(
+                torch, lambda: run_cli(["batch-verify"], lines(NB, sig_hexes)))
+        if rc_ != 1 or out_.splitlines() != want_lines:
+            fail(f"CLI batch-verify (phase 11): rc {rc_}, want rc 1 and FAIL "
+                 f"on exactly {cli_bad}")
+        return ms, cli_core_calls[-1][1]
     msgs_b = [m.encode() for m in cli_msgs]
     pk_objs = [PublicKey.from_compressed(bytes.fromhex(cli_pks[i % n_keys]))
                for i in range(NB)]
@@ -1620,9 +1987,11 @@ def main() -> int:
           f"of phase 2); phase 9 in {time.perf_counter() - t9:.1f} s wall")
 
     sharded_counts = sharded_phase(args, card, inputs5, run_launches)
+    host_core_phase(card, args.seed, core_build_s, phase9_core_calls,
+                    cli_ms, cli_batch_verify)
 
     # every fused kernel against its plain body at each further (lane count,
-    # input bounds) the runs of phases 4 to 6, 8, 9 and 10 launched it at
+    # input bounds) the runs of phases 4 to 6, 8 to 11 launched it at
     with torch.inference_mode():
         for key, seen in run_launches.items():
             for n, bounds in sorted(seen - checked[key]):

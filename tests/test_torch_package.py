@@ -41,12 +41,25 @@ def test_import_loads_no_jax_and_no_reference_package():
     assert "BAD []" in r.stdout, r.stdout
 
 
+def test_native_host_core_imports_neither_torch_nor_jax():
+    """The host core's binding (and what it imports: the package's host
+    objects, kernels/build.py) loads no torch and no jax."""
+    code = ("import sys\n"
+            "import bn254_tpu_torch.host.native\n"
+            "print(sorted(m for m in ('torch', 'jax', 'bn254_tpu') "
+            "if m in sys.modules))\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.splitlines()[-1] == "[]"
+
+
 def test_no_source_imports_jax_or_reference_package():
     files = list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
                                        REPO / "examples/batch_verify_gpu.py"]
     assert PKG / "__main__.py" in files
-    assert {PKG / "dist" / "mesh.py", PKG / "dist" / "collectives.py"} <= set(
-        files)
+    assert {PKG / "dist" / "mesh.py", PKG / "dist" / "collectives.py",
+            PKG / "host" / "native.py"} <= set(files)
     offenders = [str(f) for f in files if _FORBIDDEN.search(f.read_text())]
     assert offenders == []
     assert _FORBIDDEN.search("from bn254_tpu.fields import limbs")

@@ -29,6 +29,7 @@ from bn254_tpu_torch.constants import P, R
 from bn254_tpu_torch.hash.tai import hash_to_g1
 from bn254_tpu_torch.host import curve as C
 from bn254_tpu_torch.host import field as F
+from bn254_tpu_torch.host import native as N
 from bn254_tpu_torch.host import pairing as PR
 from bn254_tpu_torch.protocol import serde
 from bn254_tpu_torch.utils import convert as CV
@@ -235,7 +236,24 @@ def test_aggregate_golden_and_operators():
 # ---------------------------------------------------------------------------
 
 
-def test_sign_golden_and_verify():
+@pytest.fixture(params=["core", "oracle"])
+def host_path(request, monkeypatch):
+    """The host math on the native core (the default) or on the
+    pure-Python oracle (BN254_DISABLE_NATIVE=1); afterwards the test's calls
+    into the core must match the path: some on the core, none on the
+    oracle."""
+    if request.param == "core":
+        if N.compiler() is None:
+            pytest.skip("no C++ compiler on PATH")
+        monkeypatch.delenv("BN254_DISABLE_NATIVE", raising=False)
+    else:
+        monkeypatch.setenv("BN254_DISABLE_NATIVE", "1")
+    before = sum(N.calls.values())
+    yield request.param
+    assert (sum(N.calls.values()) > before) == (request.param == "core")
+
+
+def test_sign_golden_and_verify(host_path):
     sk = T.PrivateKey.from_hex(SK2_HEX)
     sig = T.ECDSA.sign(MSG, sk)
     assert sig.to_compressed().hex() == SIG2_HEX
@@ -265,7 +283,7 @@ def test_verify_rejects_wrong_key_and_message():
         T.ECDSA.verify(b"other message", sig, T.PublicKey.from_private_key(sk2))
 
 
-def test_verify_aggregate_and_example_flow():
+def test_verify_aggregate_and_example_flow(host_path):
     """ecdsa_test.rs:42-79 and examples/bn254.rs: the two-key aggregate."""
     sk1 = T.PrivateKey.from_hex(
         "c9afa9d845ba75166b5c215767b1d6934e50c3db36e89b127b8a622b120f6721")
