@@ -1,0 +1,8 @@
+"""peak_mem_mib (program counter): the caching allocator's peak over the
+window (`torch.cuda.max_memory_allocated` after a reset at its start), MiB."""
+
+
+def read(run):
+    if run.peak_window_bytes is None:
+        return None
+    return run.peak_window_bytes / 2**20
