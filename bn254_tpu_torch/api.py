@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import obs
 from .curve import g1 as DG1
 from .curve import jacobian as J
 from .dist import batch_verify as BV
@@ -101,22 +102,28 @@ def batch_verify(messages: list[bytes], signatures, public_keys,
     if mode not in ("independent", "fused", "adaptive"):
         raise ValueError(f"unknown mode {mode!r}")
     dev = resolve_device(device)
-    hx, hy = hash_to_g1_device(messages, cfg.k_candidates, dev)
-    sx, sy = CV.g1_batch_to_device_affine([s.point for s in signatures], dev)
-    pqx, pqy = CV.g2_batch_to_device_affine([k.point for k in public_keys], dev)
-    if mode == "independent":
-        return BV.verify_batch_independent(hx, hy, sx, sy, pqx, pqy).cpu().numpy()
-    if weights is None:
-        if cfg.glv_weights:
-            weights = BV.random_weights(n, cfg.rlc_bits, dev)
-        else:
-            weights = BV.random_weights_plain(n, cfg.rlc_bits)
-    if mode == "adaptive":
-        return np.asarray(BV.verify_batch_adaptive(
-            hx, hy, sx, sy, pqx, pqy, weights=weights, nbits=cfg.rlc_bits
-        ).cpu())
-    return bool(BV.verify_batch_fused(hx, hy, sx, sy, pqx, pqy, weights,
-                                      nbits=cfg.rlc_bits))
+    with obs.span("verify"):
+        hx, hy = hash_to_g1_device(messages, cfg.k_candidates, dev)
+        with obs.span("convert"):
+            sx, sy = CV.g1_batch_to_device_affine(
+                [s.point for s in signatures], dev)
+            pqx, pqy = CV.g2_batch_to_device_affine(
+                [k.point for k in public_keys], dev)
+        if mode == "independent":
+            return BV.verify_batch_independent(
+                hx, hy, sx, sy, pqx, pqy).cpu().numpy()
+        if weights is None:
+            with obs.span("weights"):
+                if cfg.glv_weights:
+                    weights = BV.random_weights(n, cfg.rlc_bits, dev)
+                else:
+                    weights = BV.random_weights_plain(n, cfg.rlc_bits)
+        if mode == "adaptive":
+            return np.asarray(BV.verify_batch_adaptive(
+                hx, hy, sx, sy, pqx, pqy, weights=weights, nbits=cfg.rlc_bits
+            ).cpu())
+        return bool(BV.verify_batch_fused(hx, hy, sx, sy, pqx, pqy, weights,
+                                          nbits=cfg.rlc_bits))
 
 
 def aggregate_signatures(signatures) -> Signature:

@@ -31,6 +31,7 @@ import secrets
 
 import torch
 
+from .. import obs
 from ..curve import g1 as DG1
 from ..curve import glv as GLV
 from ..curve import jacobian as J
@@ -75,9 +76,11 @@ def verify_batch_independent(hx, hy, sx, sy, pqx, pqy) -> torch.Tensor:
     Each tuple checks e(H, pk) * e(sig, -G2::one) == 1 with its own final
     exponentiation (exact per-tuple accept/reject).
     """
-    if _use_pair2(hx, sx, pqx):
-        return DP.pairing_check2(hx, hy, pqx, pqy, sx, sy)
-    return DP.pairing_check(*_independent_pairs(hx, hy, sx, sy, pqx, pqy))
+    with obs.span("independent"):
+        if _use_pair2(hx, sx, pqx):
+            return DP.pairing_check2(hx, hy, pqx, pqy, sx, sy)
+        return DP.pairing_check(*_independent_pairs(hx, hy, sx, sy, pqx,
+                                                    pqy))
 
 
 def _use_pair2(hx, sx, pqx) -> bool:
@@ -240,27 +243,32 @@ def _fused_points(hx, hy, sx, sy, pqx, pqy, w, nbits: int):
     the (B+1)-row point batch — the B weighted hash points plus the
     signature-sum row S = sum_i [w_i]sig_i with -G2::one as its partner.
     Everything affinizes in ONE batched pass."""
-    wh, ws = _apply_weights(hx, hy, sx, sy, w, nbits)
-    s_sum = _g1_tree_sum(ws)
+    with obs.span("points"):
+        with obs.span("points.ladder"):
+            wh, ws = _apply_weights(hx, hy, sx, sy, w, nbits)
+        with obs.span("points.tree_sum"):
+            s_sum = _g1_tree_sum(ws)
 
-    p_all = J.JPoint(
-        _el_append(wh.x, s_sum.x),
-        _el_append(wh.y, s_sum.y),
-        _el_append(wh.z, s_sum.z),
-    )
-    px, py, inf = DG1.to_affine(p_all)
+        p_all = J.JPoint(
+            _el_append(wh.x, s_sum.x),
+            _el_append(wh.y, s_sum.y),
+            _el_append(wh.z, s_sum.z),
+        )
+        with obs.span("points.to_affine"):
+            px, py, inf = DG1.to_affine(p_all)
 
-    ngx, ngy = _neg_g2_one((1,), hx.device)
-    qx = T.Fq2(_el_append(pqx.c0, ngx.c0), _el_append(pqx.c1, ngx.c1))
-    qy = T.Fq2(_el_append(pqy.c0, ngy.c0), _el_append(pqy.c1, ngy.c1))
-    return px, py, qx, qy, inf
+        ngx, ngy = _neg_g2_one((1,), hx.device)
+        qx = T.Fq2(_el_append(pqx.c0, ngx.c0), _el_append(pqx.c1, ngx.c1))
+        qy = T.Fq2(_el_append(pqy.c0, ngy.c0), _el_append(pqy.c1, ngy.c1))
+        return px, py, qx, qy, inf
 
 
 def _miller_reduce(px, py, qx, qy, inf):
     """Stage B: batched Miller loop + Fq12 product -> scalar Fq12. The inf
     mask makes an identity row contribute 1 (e(O, Q) == 1)."""
-    f = M.miller_loop(px, py, qx, qy, inf_mask=inf)
-    return T.fq12_retag(DP.fq12_reduce_mul(f, axis=0))
+    with obs.span("miller"):
+        f = M.miller_loop(px, py, qx, qy, inf_mask=inf)
+        return T.fq12_retag(DP.fq12_reduce_mul(f, axis=0))
 
 
 def _fused_local_product(hx, hy, sx, sy, pqx, pqy, w, nbits: int):
@@ -278,9 +286,17 @@ def verify_batch_fused(hx, hy, sx, sy, pqx, pqy, weights,
     weights: GlvWeights / PlainWeights / list of ints (`_resolve_weights`).
     One shared final exponentiation for the whole batch.
     """
-    w, nb = _resolve_weights(weights, nbits, hx.device)
-    f_red = _fused_local_product(hx, hy, sx, sy, pqx, pqy, w, nb)
-    return T.fq12_is_one(FE.final_exp(f_red))
+    with obs.span("fused"):
+        w, nb = _resolve_weights(weights, nbits, hx.device)
+        f_red = _fused_local_product(hx, hy, sx, sy, pqx, pqy, w, nb)
+        return _is_one(FE.final_exp(f_red))
+
+
+def _is_one(f):
+    """The fused checks' last step, `fq12_is_one` of the final
+    exponentiation's output, in the span `is_one`."""
+    with obs.span("is_one"):
+        return T.fq12_is_one(f)
 
 
 def _slice_batch(x, sl: slice):
@@ -320,14 +336,15 @@ def verify_batch_fused_chunked(hx, hy, sx, sy, pqx, pqy, weights,
         raise InvalidLengthError(
             f"batch {B} must be a multiple of chunk {chunk}")
 
-    f_acc = None
-    for off in range(0, B, chunk):
-        sl = slice(off, off + chunk)
-        f_c = _fused_local_product(
-            *(_slice_batch(x, sl) for x in (hx, hy, sx, sy, pqx, pqy, w)),
-            nb)
-        f_acc = f_c if f_acc is None else _chunk_combine(f_acc, f_c)
-    return T.fq12_is_one(FE.final_exp(f_acc))
+    with obs.span("fused"):
+        f_acc = None
+        for off in range(0, B, chunk):
+            sl = slice(off, off + chunk)
+            f_c = _fused_local_product(
+                *(_slice_batch(x, sl) for x in (hx, hy, sx, sy, pqx, pqy, w)),
+                nb)
+            f_acc = f_c if f_acc is None else _chunk_combine(f_acc, f_c)
+        return _is_one(FE.final_exp(f_acc))
 
 
 class AdaptiveResult:
@@ -352,7 +369,8 @@ class AdaptiveResult:
     def resolve(self) -> torch.Tensor:
         if self._resolved is None:
             if self._event is not None:
-                self._event.synchronize()
+                with obs.span("resolve.wait"):
+                    self._event.synchronize()
             if bool(self._ok_host):
                 self._resolved = self.per_tuple
             else:
@@ -382,10 +400,11 @@ def verify_batch_adaptive(hx, hy, sx, sy, pqx, pqy,
     if weights is None:
         from .. import config as C
 
-        if C.DEFAULT.glv_weights:
-            weights = random_weights(B, nbits, hx.device)
-        else:
-            weights = random_weights_plain(B, nbits)
+        with obs.span("weights"):
+            if C.DEFAULT.glv_weights:
+                weights = random_weights(B, nbits, hx.device)
+            else:
+                weights = random_weights_plain(B, nbits)
     ok = verify_batch_fused(hx, hy, sx, sy, pqx, pqy, weights, nbits=nbits)
     per_tuple = ok.reshape(1).expand(B)
     if ok.is_cuda:
@@ -470,6 +489,6 @@ def make_sharded_verifier(mesh: MESH.Mesh, axis_name: str = "batch",
             f_acc = (f_local if f_acc is None
                      else _chunk_combine(f_acc, f_local))
         f_all = COLL.fq12_allreduce_mul(f_acc, mesh)  # once per job
-        return T.fq12_is_one(FE.final_exp(f_all))
+        return _is_one(FE.final_exp(f_all))
 
     return run

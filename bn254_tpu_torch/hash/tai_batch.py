@@ -17,10 +17,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import obs
 from ..constants import B as CURVE_B
 from ..constants import LAST_MULTIPLE_OF_P_BELOW_2_256, P
 from ..fields import limbs as L
 from . import sha256 as SHA
+
+# messages the device search missed and the host hashed, in this process;
+# readers take differences
+host_fallbacks = 0
 
 
 def prepare_blocks_host(messages: list[bytes]):
@@ -105,20 +110,21 @@ def hash_to_g1_device(messages: list[bytes], k_candidates: int | None = None,
     position in the SHA word grid differs) and re-stitched in input order.
     """
     from .. import config as C
-    from .tai import hash_to_g1_affine
 
     if k_candidates is None:
         k_candidates = C.DEFAULT.k_candidates
 
-    lengths = {len(m) for m in messages}
-    if len(lengths) > 1:
+    with obs.span("hash"):
+        lengths = {len(m) for m in messages}
+        if len(lengths) <= 1:
+            return _hash_one_length(messages, k_candidates, device)
         buckets: dict[int, list[int]] = {}
         for i, m in enumerate(messages):
             buckets.setdefault(len(m), []).append(i)
         xs, ys, order = [], [], []
         for mlen in sorted(buckets):
             idx = buckets[mlen]
-            bx, by = hash_to_g1_device(
+            bx, by = _hash_one_length(
                 [messages[i] for i in idx], k_candidates, device
             )
             xs.append(bx)
@@ -137,12 +143,24 @@ def hash_to_g1_device(messages: list[bytes], k_candidates: int | None = None,
 
         return cat(xs), cat(ys)
 
-    blocks, w, s = prepare_blocks_host(messages)
-    blocks_t = torch.from_numpy(blocks.astype(np.int64)).to(device)
-    x, y, found, _ = hash_to_g1_batch(blocks_t, w, s, k_candidates)
-    found_np = found.cpu().numpy()
-    if not found_np.all():
+
+def _hash_one_length(messages: list[bytes], k_candidates: int, device):
+    """`hash_to_g1_device` for messages of one length: the device search
+    (span `hash.search`), then the host hash of its misses, counted in
+    `host_fallbacks` (span `hash.host_fallback`)."""
+    global host_fallbacks
+    from .tai import hash_to_g1_affine
+
+    with obs.span("hash.search"):
+        blocks, w, s = prepare_blocks_host(messages)
+        blocks_t = torch.from_numpy(blocks.astype(np.int64)).to(device)
+        x, y, found, _ = hash_to_g1_batch(blocks_t, w, s, k_candidates)
+        found_np = found.cpu().numpy()
+    if found_np.all():
+        return x, y
+    with obs.span("hash.host_fallback"):
         misses = np.nonzero(~found_np)[0]
+        host_fallbacks += len(misses)
         fix = [hash_to_g1_affine(messages[int(i)]) for i in misses]
         fx = L.to_mont(L.from_ints([a[0] for a in fix], vmax=P, device=device))
         fy = L.to_mont(L.from_ints([a[1] for a in fix], vmax=P, device=device))
@@ -150,6 +168,5 @@ def hash_to_g1_device(messages: list[bytes], k_candidates: int | None = None,
         xa, ya = x.arr.clone(), y.arr.clone()
         xa[:, midx] = fx.arr
         ya[:, midx] = fy.arr
-        x = L.El(xa, max(x.vmax, fx.vmax), x.lmax)
-        y = L.El(ya, max(y.vmax, fy.vmax), y.lmax)
-    return x, y
+        return (L.El(xa, max(x.vmax, fx.vmax), x.lmax),
+                L.El(ya, max(y.vmax, fy.vmax), y.lmax))

@@ -33,10 +33,12 @@ import functools
 import importlib
 import inspect
 import itertools
+import time
 import typing
 
 import torch
 
+from .. import obs
 from ..constants import NLIMBS, P
 from ..fields import limbs as L
 from . import build
@@ -94,6 +96,13 @@ IN_BOUNDS = (L.CAPACITY, L._COL_LIMIT)
 
 # kernel launches made by `fused_op` in this process, per key; readers reset
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
+# host ns from entry into `fused_op`'s CUDA path to its launch's return,
+# summed while an `obs` recorder is installed (no clock is read otherwise)
+host_ns = 0
+# `_out_struct`'s misses, each a plain-body run on one-lane CPU inputs, and
+# their ns; readers take differences
+bounds_learned = 0
+bounds_learn_ns = 0
 
 
 @contextlib.contextmanager
@@ -148,8 +157,10 @@ def _out_struct(fn, bounds_in, args):
     """The output tree of `fn` for inputs of these bounds, as one-lane CPU
     Els with the static bounds the plain body declares (data-independent).
     Raises if a declared bound is below a canonical output's."""
+    global bounds_learned, bounds_learn_ns
     key = (fn, bounds_in)
     if key not in _out_structs:
+        t0 = time.perf_counter_ns()
         it = iter(bounds_in)
         one = L.tree_map(lambda e: _one_lane(*next(it)), args)
         with kernel_mode():
@@ -159,6 +170,8 @@ def _out_struct(fn, bounds_in, args):
                 raise ValueError(f"{fn.__name__} declares an output bound "
                                  "below a canonical value's")
         _out_structs[key] = out
+        bounds_learned += 1
+        bounds_learn_ns += time.perf_counter_ns() - t0
     return _out_structs[key]
 
 
@@ -184,10 +197,12 @@ def _kernel(key: str):
 def fused_op(fn, key: str, *args):
     """`fn(*args)` as one kernel launch of `key` (CUDA) or the plain call
     (CPU). Returns fn's tree with (18, *batch) El leaves."""
+    global host_ns
     in_els = L.tree_leaves(args)
     if not _on_cuda(in_els):
         with kernel_mode():
             return fn(*args)
+    t0 = None if obs.recorder is None else time.perf_counter_ns()
     if key not in KERNELS:
         raise NotImplementedError(f"no CUDA kernel for fused body {key!r}")
     n_in, n_out = arity(key)
@@ -208,6 +223,8 @@ def fused_op(fn, key: str, *args):
     if n:
         _launch(key, packed, out)
         launches[key] += 1
+    if t0 is not None:
+        host_ns += time.perf_counter_ns() - t0
     rows = iter(out)
     return L.tree_map(
         lambda t: L.El(next(rows).reshape((NLIMBS,) + batch), t.vmax, t.lmax),

@@ -17,6 +17,7 @@ Easy part (p^6-1)(p^2+1), then the Devegili-style hard-part chain.
 
 from __future__ import annotations
 
+from .. import obs
 from ..constants import U
 from ..fields import limbs as L
 from ..fields import tower as T
@@ -138,8 +139,12 @@ def _retag_tight(a: Fq12) -> Fq12:
 
 def final_exp(f: Fq12) -> Fq12:
     """The JAX package's `final_exp_staged`: every stage retags its output."""
-    f = T.fq12_retag(easy_part(T.fq12_retag(f)))
-    ft1 = T.fq12_retag(exp_u(f))
-    ft2 = T.fq12_retag(exp_u(ft1))
-    ft3 = T.fq12_retag(exp_u(ft2))
-    return _retag_tight(hard_combine(f, ft1, ft2, ft3))
+    with obs.span("final_exp"):
+        with obs.span("final_exp.easy"):
+            f = T.fq12_retag(easy_part(T.fq12_retag(f)))
+        ft = [f]
+        for _ in range(3):
+            with obs.span("final_exp.exp_u"):
+                ft.append(T.fq12_retag(exp_u(ft[-1])))
+        with obs.span("final_exp.hard"):
+            return _retag_tight(hard_combine(*ft))
