@@ -11,6 +11,7 @@ import numpy as np
 from ..constants import B, G1_GEN
 from ..fields import limbs as L
 from . import jacobian as J
+from .glv import _pin
 from .ops import FqOps
 
 OPS = FqOps
@@ -31,6 +32,15 @@ def identity(batch_shape=(), device="cpu") -> J.JPoint:
 
 def add(p1, p2):
     return J.add(OPS, p1, p2)
+
+
+def _add_body_impl(x1: L.El, y1: L.El, z1: L.El, x2: L.El, y2: L.El,
+                   z2: L.El):
+    """p1 + p2 (kernel "g1_add", one level of the signature tree-sum): the
+    complete addition, its outputs pinned to (STD_BOUND, 2^16) as the GLV
+    ladder step's are, so that a tree's levels learn one output template."""
+    out = J.add(OPS, J.JPoint(x1, y1, z1), J.JPoint(x2, y2, z2))
+    return _pin(out.x), _pin(out.y), _pin(out.z)
 
 
 def double(p):

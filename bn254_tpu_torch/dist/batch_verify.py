@@ -39,6 +39,7 @@ from ..errors import InvalidLengthError
 from ..fields import limbs as L
 from ..fields import tower as T
 from ..host import curve as HC
+from ..kernels import fused as FK
 from ..pairing import final_exp as FE
 from ..pairing import miller as M
 from ..pairing import pairing as DP
@@ -216,8 +217,11 @@ def _el_append(a: L.El, b: L.El) -> L.El:
 
 def _g1_tree_sum(p: J.JPoint, axis: int = 0) -> J.JPoint:
     """Tree-sum a batched Jacobian G1 point along a batch axis (an odd
-    leftover row rides along to the next round)."""
+    leftover row rides along to the next round). On CUDA tensors each
+    level's pair add is one "g1_add" kernel launch; on the CPU the complete
+    add leaf by leaf, as in the JAX package."""
     taxis = axis + 1
+    on_card = T._use_kernels(p.x, p.y, p.z)
 
     def take(start, stop):
         return lambda e: L.El(e.arr.narrow(taxis, start, stop - start),
@@ -226,8 +230,12 @@ def _g1_tree_sum(p: J.JPoint, axis: int = 0) -> J.JPoint:
     n = p.x.arr.shape[taxis]
     while n > 1:
         half = n // 2
-        s = DG1.add(L.tree_map(take(0, half), p),
-                    L.tree_map(take(half, 2 * half), p))
+        p1 = L.tree_map(take(0, half), p)
+        p2 = L.tree_map(take(half, 2 * half), p)
+        if on_card:
+            s = J.JPoint(*FK.fused_op(DG1._add_body_impl, "g1_add", *p1, *p2))
+        else:
+            s = DG1.add(p1, p2)
         if n % 2:
             rest = L.tree_map(take(2 * half, n), p)
             s = DP._cat_els(s, rest, taxis)

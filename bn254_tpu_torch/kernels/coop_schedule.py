@@ -491,6 +491,14 @@ def trace_glv_dbl_add():
     return tr, list(tw.g1_add(tw.g1_double(acc), sel))
 
 
+def trace_g1_add():
+    """(p1, p2) -> p1 + p2, G1 Jacobian points: 6 -> 3 Els."""
+    tr = Trace()
+    tw = Tower(tr)
+    loads = [tr.load(i) for i in range(6)]
+    return tr, list(tw.g1_add(tuple(loads[:3]), tuple(loads[3:])))
+
+
 # key -> (tracer, leaf products of the formula per lane, loads excluded,
 # whether its products run cios_wide rather than cios)
 BODIES = {
@@ -507,6 +515,7 @@ BODIES = {
     "fq12_sq": (trace_fq12_sq, 36, True),
     "g2_dbl_step": (trace_g2_dbl_step, 42, True),
     "g2_add_step": (trace_g2_add_step, 41, True),
+    "g1_add": (trace_g1_add, 23, True),
 }
 
 

@@ -20,6 +20,7 @@
 //   fq12_mul_line    pairing/miller.py:90             18 -> 12
 //   g2_dbl_step      pairing/miller.py:125             8 -> 12
 //   g2_add_step      pairing/miller.py:167            12 -> 12
+//   g1_add           dist/batch_verify.py:412          6 -> 3
 //
 // Interface (kernels/fused.py): one contiguous (n_in, 18, n) int64 input, one
 // (n_out, 18, n) int64 output, Els in the plain body's tree order (an Fq12
@@ -34,7 +35,7 @@
 // Design, the cooperative kernels (every key but the two pow windows:
 // miller_dbl_body, miller_add_body, expu_step, fq12_mul, miller_dbl_body2,
 // miller_add_body2, glv_dbl_add, expu_sq2, fq12_cyc_sq, fq12_mul_line,
-// fq12_sq, g2_dbl_step, g2_add_step): a group of G threads per lane. Their
+// fq12_sq, g2_dbl_step, g2_add_step, g1_add): a group of G threads per lane. Their
 // bodies are level schedules (kernels/coop_schedule.py, generated into
 // coop_schedule.cuh): each level is a set of independent Fp operations (a
 // CIOS product, an input load, one thread's chain of additions, or its chain
@@ -43,15 +44,16 @@
 // synchronises (__syncwarp for G <= 32, __syncthreads for a 64-thread group).
 // A lane's values live in shared memory, one slot of 9 words (two 15-bit
 // limbs each) per Fp, reused once dead: 91, 86, 108, 108, 97, 92, 20, 42, 42,
-// 63, 72, 33 and 28 slots (3.3, 3.1, 3.9, 3.9, 3.5, 3.3, 0.7, 1.5, 1.5, 2.3,
-// 2.6, 1.2 and 1.0 KB). The products of one product depth share a level (4,
-// 4, 3, 1, 5, 4, 7, 2, 1, 1, 1, 3 and 4 such levels, loads excluded;
+// 63, 72, 33, 28 and 19 slots (3.3, 3.1, 3.9, 3.9, 3.5, 3.3, 0.7, 1.5, 1.5,
+// 2.3, 2.6, 1.2, 1.0 and 0.7 KB). The products of one product depth share a
+// level (4, 4, 3, 1, 5, 4, 7, 2, 1, 1, 1, 3, 4 and 5 such levels, loads
+// excluded;
 // fq12_mul's 54 products are one level, each cyclotomic square's 18 another,
 // the line fold's 39 one, fq12_sq's 36 one), the leaf runs with its operands
 // in registers, and results agree with the plain bodies by canonical value.
 // The leaf is the schedule's (S::kWideLeaf): cios_wide for glv_dbl_add,
-// expu_sq2, fq12_cyc_sq, fq12_mul_line, fq12_sq, g2_dbl_step and
-// g2_add_step, cios for the six others; BN254_WIDE_LEAF=0 or 1, where
+// expu_sq2, fq12_cyc_sq, fq12_mul_line, fq12_sq, g2_dbl_step, g2_add_step
+// and g1_add, cios for the six others; BN254_WIDE_LEAF=0 or 1, where
 // defined, sets it for every schedule (kernel_times.py --leaf builds so).
 // expu_sq2 (acc^4) is two Granger-Scott squarings, 36 products in 19 levels;
 // fq12_cyc_sq one, 18 in 10. fq12_mul_line (f times the sparse line a + b w +
@@ -67,21 +69,25 @@
 // (one Shamir step, 2 acc + sel) is the plain body's dbl-2009-l, add-2007-bl
 // and the doubling of 2 acc that the plain complete add computes on every
 // lane, 30 products in 22 levels of 1-7 operations, then one SEL per output
-// coordinate with the plain body's four selects in its order. The Miller
+// coordinate with the plain body's four selects in its order. g1_add (one
+// level of the signature tree-sum, p1 + p2) is the same complete addition
+// alone: add-2007-bl and the doubling of p1, 23 products in 15 levels of
+// 1-9 operations, then the three SELs. The Miller
 // bodies keep the plain bodies' order (the square of a doubling digit, the
 // step, the line fold, then the two-pair bodies' constant line), and the
 // two-pair bodies' constant triple (ca, cb, cc) is read like any other input
 // El: the wrapper's packing broadcasts it over the lanes. G comes from the
 // lane count and the card's SM count (kCoopRule below, kGlvRule for
-// glv_dbl_add, kScanRule for the scan loop's fq12_sq, g2_dbl_step and
-// g2_add_step): 64 for the one-lane final exponentiation, the narrow end of
-// the Fq12 product tree and the scan loop's 65 and 128 lanes, 8 for 4,096
-// and 8,193 lanes, 4 for the scan loop's 8,192 and 8,193, 2 for
-// glv_dbl_add's 16,384. What bounds them: at thousands of lanes the
-// instruction rate of the leaves; at one lane the latency of the levels,
-// most of them chains of additions whose carries run limb by limb;
-// glv_dbl_add, whose levels hold 1-7 operations, the latency of its 22
-// levels at ~8 warps a SM.
+// glv_dbl_add, kG1AddRule for g1_add, kScanRule for the scan loop's
+// fq12_sq, g2_dbl_step and g2_add_step): 64 for the one-lane final
+// exponentiation, the narrow end of the Fq12 product tree and the scan
+// loop's 65 and 128 lanes, 8 for 4,096 and 8,193 lanes, 4 for the scan
+// loop's 8,192 and 8,193, 2 for glv_dbl_add's 16,384; g1_add 16 up to
+// 1,024 lanes, 8 at 2,048 and 4 at 4,096. What bounds them: at thousands
+// of lanes the instruction rate of the leaves; at one lane the latency of
+// the levels, most of them chains of additions whose carries run limb by
+// limb; glv_dbl_add and g1_add, whose levels hold 1-9 operations, the
+// latency of their 22 and 15 levels.
 //
 // Design, the pow windows el_pow_step_mul (acc^8 m) and el_pow_step_sq
 // (acc^8), one body (lane_el_pow_step<kMul>): the input loads, three
@@ -263,6 +269,18 @@ constexpr CoopRule kCoopRule[] = {{3, 64}, {11, 32}, {23, 16}, {kAnyWidth, 8}};
 // more than the warps a bigger group adds (G=2 at 16,384 lanes: ~8 warps a
 // SM). 4-31 lanes a SM, which no path runs, take G=4 unmeasured.
 constexpr CoopRule kGlvRule[] = {{3, 64}, {94, 4}, {kAnyWidth, 2}};
+
+// g1_add's rows, from its own sweep at the widths of the signature
+// tree-sum, which halves its lanes every level from 4,096 (8,192 tuples)
+// down to one (every G at 1-4,096 and 8,192 lanes, 50 launches back to
+// back; NVIDIA H100 80GB HBM3, 700.00 W), ms per launch: at 1-4 lanes a
+// SM G=16 and G=32 within 1 % (0.0378-0.0384; G=64 0.0385-0.0390, G=4
+// 0.0483-0.0489); at 8 (1,024 lanes) G=16 0.0381 (G=8 0.0406, G=32
+// 0.0495); at 16 (2,048) G=8 0.0410 (G=4 0.0492, G=16 0.0498); at 32
+// (4,096) G=4 0.0492 (G=8 0.0531) and at 63 (8,192) G=4 0.0645 (G=8
+// 0.0929). Each level is latency-bound: its 15 levels hold 1-9 operations,
+// and the whole tree-sum of 8,192 rows takes 0.54 ms of device time.
+constexpr CoopRule kG1AddRule[] = {{11, 16}, {23, 8}, {kAnyWidth, 4}};
 
 // The scan loop's rows (fq12_sq, g2_dbl_step, g2_add_step), from their own
 // sweep (coop_sweep at 1, 2, 4, 8, 15, 32 and 63 lanes a SM; NVIDIA H100
@@ -718,3 +736,4 @@ BN254_COOP_KERNEL(fq12_mul_line, CoopFq12MulLine, BN254_COOP_GROUPS,
 BN254_COOP_KERNEL(fq12_sq, CoopFq12Sq, BN254_COOP_GROUPS, kScanRule)
 BN254_COOP_KERNEL(g2_dbl_step, CoopG2DblStep, BN254_COOP_GROUPS, kScanRule)
 BN254_COOP_KERNEL(g2_add_step, CoopG2AddStep, BN254_COOP_GROUPS, kScanRule)
+BN254_COOP_KERNEL(g1_add, CoopG1Add, BN254_COOP_GROUPS, kG1AddRule)

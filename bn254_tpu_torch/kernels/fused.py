@@ -1,5 +1,5 @@
 """Fused bodies: one CUDA kernel launch per tower op, Miller digit or step
-op, exp_u window, pow window or GLV ladder step.
+op, exp_u window, pow window, GLV ladder step or tree-sum level.
 
 Counterpart of `bn254_tpu/kernels/fused.py:fused_op`. `fused_op(fn, key,
 *args)` runs `fn(*args)`, a plain body over El trees (`tower._fq12_mul_impl`,
@@ -88,6 +88,9 @@ KERNELS = {
                           "bn254_tpu/pairing/miller.py:125"),
     "g2_add_step": Kernel("bn254_g2_add_step", "pairing.miller:_add_step_impl",
                           "bn254_tpu/pairing/miller.py:167"),
+    # no TPU kernel: the JAX package's tree-sum adds leaf by leaf
+    "g1_add": Kernel("bn254_g1_add", "curve.g1:_add_body_impl",
+                     "bn254_tpu/dist/batch_verify.py:412"),
 }
 
 # the kernels' input contract: values < 2^270, limbs < 2^26 (the limb
@@ -267,8 +270,8 @@ INSTANCES = {**dict.fromkeys(("miller_dbl_body", "expu_step",
                               "fq12_mul", "miller_add_body"), _GROUPS),
              "glv_dbl_add": (1, 2, *_GROUPS),
              **dict.fromkeys(("expu_sq2", "fq12_cyc_sq", "fq12_mul_line",
-                              "fq12_sq", "g2_dbl_step", "g2_add_step"),
-                             _GROUPS)}
+                              "fq12_sq", "g2_dbl_step", "g2_add_step",
+                              "g1_add"), _GROUPS)}
 COOP = tuple(INSTANCES)
 COOP_INFO = ("blocks_per_sm", "smem_per_block", "lanes_per_block",
              "registers", "stack_bytes", "threads_per_block")
@@ -276,7 +279,7 @@ COOP_INFO = ("blocks_per_sm", "smem_per_block", "lanes_per_block",
 
 def coop_groups(key: str, lib=None) -> tuple[int, ...]:
     """The group sizes the rule of `key` can pick (fused.cu's kCoopRule,
-    kGlvRule), from the CUDA library or a host build `lib`."""
+    kGlvRule, ...), from the CUDA library or a host build `lib`."""
     lib = lib or build.library("fused")
     buf = (ctypes.c_int * 16)()
     n = getattr(lib, f"{KERNELS[key].symbol}_groups")(buf, 16)

@@ -27,7 +27,7 @@ Phases, each of which exits non-zero on failure:
    spills per kernel; for each instantiation of the lane-cooperative
    kernels (`fused.INSTANCES`: G = 4 ... 64 of miller_dbl_body, expu_step,
    miller_dbl_body2, miller_add_body2, fq12_mul, miller_add_body, expu_sq2,
-   fq12_cyc_sq, fq12_mul_line, fq12_sq, g2_dbl_step and g2_add_step,
+   fq12_cyc_sq, fq12_mul_line, fq12_sq, g2_dbl_step, g2_add_step and g1_add,
    G = 1 ... 64 of glv_dbl_add), resident blocks per SM, shared memory per
    block, lanes per block, registers and stack
    (cudaOccupancyMaxActiveBlocksPerMultiprocessor and
@@ -44,7 +44,7 @@ Phases, each of which exits non-zero on failure:
      at the main path's widest shape (54 x batch lanes), a lane count that is
      no multiple of the block, lazy boundary limbs, a broadcast operand, and
      an 8-lane sample against the Python-int Montgomery oracle.
-   - The fifteen fused kernels of fused.cu against their plain bodies, run
+   - The sixteen fused kernels of fused.cu against their plain bodies, run
      on the card with the plain leaf and no kernel inside, by canonical
      value, every output within the bounds the plain body declares, at the
      widths the paths give each (`WIDTHS`) and at 1 lane: random inputs at
@@ -71,7 +71,8 @@ Phases, each of which exits non-zero on failure:
    two-pair kernels (65 + 23 launches). Every kernel's launch count is
    reset just before the adaptive run and read just after: exactly 65
    miller_dbl_body, 23 miller_add_body, 69 expu_step, 24 expu_sq2, 64
-   glv_dbl_add, 200 el_pow_step_mul and 51 el_pow_step_sq launches, none of
+   glv_dbl_add, 13 g1_add (a level of the signature tree-sum each), 200
+   el_pow_step_mul and 51 el_pow_step_sq launches, none of
    the two-pair bodies, of fq12_sq (which this path runs only inside the
    Miller bodies) or of the scan loop's step ops, and some launches of
    montmul, fq12_mul and fq12_cyc_sq.
@@ -79,8 +80,8 @@ Phases, each of which exits non-zero on failure:
    tuples of the main batch: `api.batch_verify(mode="independent")` runs
    pair2 (the JAX package's default) and must accept all, with exactly 65
    miller_dbl_body2, 23 miller_add_body2, 0 miller_dbl_body/_add_body, 69
-   expu_step, 24 expu_sq2, 134 el_pow_step_mul, 33 el_pow_step_sq and 0
-   glv_dbl_add launches, and one output template learned
+   expu_step, 24 expu_sq2, 134 el_pow_step_mul, 33 el_pow_step_sq, 0
+   glv_dbl_add and 0 g1_add launches, and one output template learned
    per two-pair body. With three signatures tampered it must flag exactly
    those, and so must the stacked form (the two pairs through the
    single-pair bodies, `pairing_check(*_independent_pairs(...))`, which the
@@ -125,7 +126,7 @@ Phases, each of which exits non-zero on failure:
    widths and launch counts; ms per launch (50 back to back, the better of
    two passes over the sizes) of every instantiation of the lane-
    cooperative kernels (the `coop_sweep` line): the Miller, exp_u and
-   Fq12 bodies and the G2 steps at 1 lane, 2, 4, 8 and 15 lanes per SM,
+   Fq12 bodies, the G2 steps and g1_add at 1 lane, 2, 4, 8 and 15 lanes per SM,
    `independent` and batch + 1 lanes, the four scan-loop kernels
    (fq12_mul_line, fq12_sq, g2_dbl_step, g2_add_step) also at every lane
    count the phase 6 runs launched them at (2 x `independent`, the tampered
@@ -246,6 +247,7 @@ MAIN_PATH_LAUNCHES = {"miller_dbl_body": 65, "miller_add_body": 23,
                       "el_pow_step_sq": 15 + 2 * 18}
 # the same batch by stage, as the chunked check (phase 8) runs them: the
 # hash's square root; per chunk, the points stage (64 ladder steps, the
+# signature tree-sum's levels over its tuples: `tree_launches`, the
 # batched to_affine's inversion) and the Miller stage (65 + 23 digits, the
 # product tree over its rows: `tree_launches`); once, the final
 # exponentiation (three exp_u, fq12_inv's inversion, the easy part's 2,
@@ -260,8 +262,9 @@ FINAL_EXP_LAUNCHES = {"expu_step": 69, "expu_sq2": 24, "el_pow_step_mul": 66,
 
 
 def tree_launches(rows: int) -> int:
-    """fq12_mul launches of the Fq12 product tree over `rows` rows (an odd
-    row rides along): 14 over the 8,193 Miller rows of 8,192 tuples."""
+    """Launches of a tree over `rows` rows, one a level (an odd row rides
+    along): fq12_mul's 14 over the 8,193 Miller rows of 8,192 tuples,
+    g1_add's 13 over their 8,192 signatures."""
     n = 0
     while rows > 1:
         rows, n = rows - rows // 2, n + 1
@@ -292,6 +295,7 @@ def sharded_launches(world: int, n_chunks: int, shard_chunk: int) -> dict:
     fq12_mul over the gathered values, one final exponentiation (the
     kernels the fused tier never runs are not named)."""
     per_chunk = {**CHUNK_STAGE_LAUNCHES,
+                 "g1_add": tree_launches(shard_chunk),
                  "fq12_mul": tree_launches(shard_chunk + 1)}
     return staged({k: n_chunks * v for k, v in per_chunk.items()},
                   {"fq12_mul": n_chunks - 1 + world - 1}, FINAL_EXP_LAUNCHES)
@@ -304,7 +308,8 @@ def chunked_launches(n_chunks: int, chunk: int) -> dict:
 # the independent tier on the card (pair2): the same schedule through the
 # two-pair bodies, then the final exponentiation at one lane per tuple;
 # one square root per message length (hash/tai_batch.py hashes each
-# length's bucket on its own) and one inversion, no GLV ladder
+# length's bucket on its own) and one inversion, no GLV ladder and no
+# signature tree-sum
 PAIR2 = ("miller_dbl_body2", "miller_add_body2")
 
 
@@ -315,7 +320,8 @@ def independent_launches(n_lengths: int = 1) -> dict:
             "miller_dbl_body": 0, "miller_add_body": 0,
             "expu_step": 69, "expu_sq2": 24,
             "el_pow_step_mul": 68 * n_lengths + 66,
-            "el_pow_step_sq": 15 * n_lengths + 18, "glv_dbl_add": 0}
+            "el_pow_step_sq": 15 * n_lengths + 18, "glv_dbl_add": 0,
+            "g1_add": 0}
 
 
 INDEPENDENT_LAUNCHES = independent_launches(1)
@@ -1400,14 +1406,15 @@ def main() -> int:
     # unrolled bodies, or the scan form's step ops and line folds); the
     # first level of the Fq12 product tree; the one-lane final
     # exponentiation; the hash's B x k square roots; the (H, sig) pair axis
-    # of the GLV ladder; the two-pair bodies at one lane per tuple of the
+    # of the GLV ladder; the first level of the signature tree-sum; the
+    # two-pair bodies at one lane per tuple of the
     # independent tier
     WIDTHS = {"miller_dbl_body": B + 1, "miller_add_body": B + 1,
               "miller_dbl_body2": NI, "miller_add_body2": NI,
               "expu_step": 1, "expu_sq2": 1, "fq12_mul": (B + 1) // 2,
               "fq12_sq": B + 1, "fq12_cyc_sq": 1, "el_pow_step_mul": B * K,
               "el_pow_step_sq": B * K, "glv_dbl_add": 2 * B,
-              **dict.fromkeys(SCAN_OPS, B + 1)}
+              "g1_add": max(1, B // 2), **dict.fromkeys(SCAN_OPS, B + 1)}
     rng = np.random.default_rng(args.seed)
     PINS = (L.STD_BOUND, 1 << 16)
 
@@ -1514,12 +1521,13 @@ def main() -> int:
                         f"first, {n} lanes", glv_edge_inputs(n))
 
     # -- 4. the main path --------------------------------------------------------
+    main_want = {**MAIN_PATH_LAUNCHES, "g1_add": tree_launches(B)}
+
     def check_counts(tag):
         got = dict(FK.launches)
-        exact = {k: got[k] for k in MAIN_PATH_LAUNCHES}
-        if exact != MAIN_PATH_LAUNCHES:
-            fail(f"{tag}: fused kernel launches {exact}, "
-                 f"want {MAIN_PATH_LAUNCHES}")
+        exact = {k: got[k] for k in main_want}
+        if exact != main_want:
+            fail(f"{tag}: fused kernel launches {exact}, want {main_want}")
         idle = [k for k, v in got.items() if not v and k not in
                 NOT_ON_MAIN_PATH]
         if idle or MK.launches == 0:

@@ -11,7 +11,10 @@ tests/test_torch_verify.py), with each chunk's points and Miller stages,
 one fold and one final exponentiation counted launch by launch against
 the table chip_smoke.py asserts on the card (`chunked_launches`). A chunk
 that does not divide the batch raises; the fold is limb for limb the JAX
-package's `_chunk_combine_jit`.
+package's `_chunk_combine_jit`. Each chunk's signature tree-sum
+(`_g1_tree_sum`), one `g1_add` launch a level on the card, gives the JAX
+package's sum by value over 1 to 64 rows with the complete addition's edges
+among them, and on the CPU its limbs.
 """
 
 import numpy as np
@@ -19,7 +22,9 @@ import pytest
 
 import chip_smoke
 
+from bn254_tpu_torch.curve import g1 as DG1
 from bn254_tpu_torch.curve import glv as GLV
+from bn254_tpu_torch.curve import jacobian as J
 from bn254_tpu_torch.dist import batch_verify as BV
 from bn254_tpu_torch.errors import InvalidLengthError
 from bn254_tpu_torch.fields import limbs as L
@@ -105,3 +110,72 @@ def test_chunk_combine_matches_jax():
         assert (p.vmax, p.lmax) == (j.vmax, j.lmax)
         assert np.array_equal(np.asarray(j.arr).astype(np.int64),
                               p.arr.numpy())
+
+
+def tree_rows(n):
+    """n host Jacobian G1 points, [3 + i]G with Z = i + 2, whose first level
+    meets the complete addition's edges: row 0 the identity (paired with
+    row n // 2), row n // 2 + 1 row 1 in another representation (a
+    doubling), row n // 2 + 2 the negation of row 2 (the identity)."""
+    pts = [HC.g1_mul(HC.G1_ONE, 3 + i) for i in range(n)]
+    rows = []
+    for i, (x, y, z) in enumerate(pts):
+        lam = i + 2
+        rows.append((x * lam ** 2 % HC.P, y * lam ** 3 % HC.P, z * lam % HC.P))
+    half = n // 2
+    if n >= 2:
+        rows[0] = (1, 1, 0)
+    if half >= 2:
+        x, y, z = rows[1]
+        rows[half + 1] = (x * 49 % HC.P, y * 343 % HC.P, z * 7 % HC.P)
+    if half >= 3:
+        rows[half + 2] = HC.g1_neg(rows[2])
+    return rows
+
+
+def jax_tree_sum(p):
+    """The JAX package's `_g1_tree_sum` on the same limbs and bounds, its
+    result carried back as port Els."""
+    import jax.numpy as jnp
+
+    from bn254_tpu.curve import jacobian as JJ
+    from bn254_tpu.dist import batch_verify as JBV
+    from bn254_tpu.fields import limbs as JL
+
+    out = JBV._g1_tree_sum(JJ.JPoint(*[
+        JL.El(jnp.asarray(e.arr.numpy().astype(np.uint32)), e.vmax, e.lmax)
+        for e in p]))
+    return J.JPoint(*[CV.from_numpy(np.asarray(e.arr).astype(np.int64),
+                                    e.vmax, e.lmax) for e in out])
+
+
+def host_point(p):
+    """A scalar Jacobian point's Montgomery limbs -> host ints."""
+    return tuple(int(L.to_ints(L.from_mont(e))) for e in p)
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 13, 64])
+def test_tree_sum_through_the_card_route(host_card, n):
+    """`_g1_tree_sum` on the card's route, one g1_add launch a level, by
+    value against the JAX package's tree-sum and the host oracle."""
+    rows = tree_rows(n)
+    p = DG1.from_host(rows)
+    got = BV._g1_tree_sum(p)
+    levels = chip_smoke.tree_launches(n)
+    assert host_card(**({"g1_add": levels} if levels else {}))
+    want = host_point(jax_tree_sum(p))
+    assert HC.g1_eq(host_point(got), want)
+    total = rows[0]
+    for r in rows[1:]:
+        total = HC.g1_add(total, r)
+    assert HC.g1_eq(want, total)
+
+
+def test_tree_sum_on_the_cpu_is_jax_limb_for_limb():
+    """The CPU route over 13 rows (odd widths carry a row) keeps the JAX
+    package's limbs and bounds."""
+    p = DG1.from_host(tree_rows(13))
+    got, want = BV._g1_tree_sum(p), jax_tree_sum(p)
+    for g, w in zip(got, want):
+        assert (g.vmax, g.lmax) == (w.vmax, w.lmax)
+        assert np.array_equal(w.arr.numpy(), g.arr.numpy())

@@ -1,16 +1,17 @@
 """The lane-cooperative kernels (`miller_dbl_body`, `expu_step`,
 `miller_dbl_body2`, `miller_add_body2`, `fq12_mul`, `miller_add_body`,
 `glv_dbl_add`, `expu_sq2`, `fq12_cyc_sq`, `fq12_mul_line`, `fq12_sq`,
-`g2_dbl_step`, `g2_add_step`) off the card.
+`g2_dbl_step`, `g2_add_step`, `g1_add`) off the card.
 
 Their level schedules (`kernels/coop_schedule.py`, generated into
 `coop_schedule.cuh`) are checked twice:
 
 * in Python: the tables run level by level on Python ints (Montgomery
-  products; `glv_dbl_add`'s masked selects as SEL chains), each level
+  products; `glv_dbl_add`'s and `g1_add`'s masked selects as SEL
+  chains), each level
   reading only slots that earlier levels wrote and writing no slot another
   op of the level reads; every product of the formula computed exactly
-  once (117, 90, 160, 123, 54, 80, 30, 36, 18, 39, 36, 42 and 41, plus
+  once (117, 90, 160, 123, 54, 80, 30, 36, 18, 39, 36, 42, 41 and 23, plus
   one load per input El, no two products of the same operands); every
   output written once, equal to the plain body by value; each schedule's tables byte for
   byte as they were measured on the card;
@@ -114,6 +115,8 @@ TABLE_DIGESTS = {
         "74b581db375eeea47f9de0340ceac5d0cb23e8274f82a43462a16bc43d4bff53",
     "g2_add_step":
         "596309849e39f8620c182d9b10e5a362bd9830b295dfff2e563c0e236d3853e8",
+    "g1_add":
+        "dbff5816bc99f4e694946363ec37bc0ad89406b913833363477b36fd9b586a7a",
 }
 
 

@@ -6,8 +6,9 @@ carry-across functions (`utils.convert.from_numpy` and
 `np.array_equal`, together with the (vmax, lmax) bounds, unless a test says
 "by value":
 
-* the fifteen plain bodies against JAX's same `_impl` at B=3, inputs at the
-  pinned / retagged bounds (2^262, 2^16);
+* the sixteen plain bodies against JAX's same `_impl` at B=3 (`g1_add`
+  against its complete add, pinned), inputs at the pinned / retagged
+  bounds (2^262, 2^16);
 * `_miller_loop_unrolled(naf=(1, -1))`, Frobenius steps included,
   `_exp_u_unrolled` over one zero and one nonzero window, `_pow_fixed_fused`
   on an exponent with zero and nonzero windows and `_shamir_unrolled` over
@@ -25,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from bn254_tpu.curve import g1 as JG1
 from bn254_tpu.curve import glv as JGLV
 from bn254_tpu.curve import jacobian as JJ
 from bn254_tpu.fields import limbs as JL
@@ -47,6 +49,15 @@ from bn254_tpu_torch.utils import convert as CV
 
 STD = L.STD_BOUND
 
+
+def jax_g1_add(x1, y1, z1, x2, y2, z2):
+    """The JAX package's complete add on Fq with its outputs pinned as its
+    GLV ladder step pins them: the package has no body for one tree-sum
+    level, which it adds leaf by leaf."""
+    out = JG1.add(JJ.JPoint(x1, y1, z1), JJ.JPoint(x2, y2, z2))
+    return tuple(JGLV._pin(c) for c in out)
+
+
 # key -> the JAX package's body of the same kernel
 JAX_BODIES = {
     "miller_dbl_body": JM._dbl_body_impl,
@@ -64,6 +75,7 @@ JAX_BODIES = {
     "fq12_mul_line": JM._fq12_mul_line_impl,
     "g2_dbl_step": JM._dbl_step_impl,
     "g2_add_step": JM._add_step_impl,
+    "g1_add": jax_g1_add,
 }
 
 # the port's tree types -> the JAX package's

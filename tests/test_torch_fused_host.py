@@ -8,8 +8,8 @@ every Fp result < 2p with limbs < 2^15, and every loaded value < 2^270.
 Each body is held against the port's plain body (what CPU tensors run) on 5
 lanes, boundary lanes included: by canonical value, and every output within
 the bounds the plain body declares; the two-pair Miller bodies also with
-their constant line triple unbatched; `glv_dbl_add`'s edge lanes at every
-group size G, the two pow windows on lazy inputs and `el_pow_step_sq`
+their constant line triple unbatched; `glv_dbl_add`'s and `g1_add`'s
+edge lanes at every group size G, the two pow windows on lazy inputs and `el_pow_step_sq`
 against the JAX package's `_pow_step_sq`. The two leaves, `cios` and
 `cios_wide`, are held bit for bit against `montmul_plain` and each other.
 This is the only run of the kernels' arithmetic off the card.
@@ -102,10 +102,11 @@ def check_against_plain(lib, key, packed, bounds=PINNED, group=None):
     rule) on `packed` against the plain body (CPU `fused_op`) by canonical
     value and the declared bounds; returns the plain body's output leaves."""
     n_in, n_out = FK.arity(key)
-    assert packed.shape == (n_in, NLIMBS, N)
+    n = packed.shape[2]
+    assert packed.shape == (n_in, NLIMBS, n)
     inp = np.ascontiguousarray(packed)
-    got = np.zeros((n_out, NLIMBS, N), dtype=np.int64)
-    faults = host_fn(lib, key, group)(inp.ctypes.data, got.ctypes.data, N)
+    got = np.zeros((n_out, NLIMBS, n), dtype=np.int64)
+    faults = host_fn(lib, key, group)(inp.ctypes.data, got.ctypes.data, n)
     assert faults == 0, f"{faults} bound checks failed in the host build"
 
     args = FK.args_from_leaves(
@@ -167,6 +168,48 @@ def test_host_glv_step_edge_cases(host_lib):
         z = [int(v) % P for v in L.to_ints(out[2])]
         assert z[2] == 0 and z[4] == 0 and z[3] != 0
         assert z[0] == sel_z[0]  # acc at infinity: the sum is sel
+
+
+def g1_jac(pt, lam):
+    """Host Jacobian G1 point `pt` (Z = 1, or 0 for the identity) in the
+    representation with Z scaled by lam."""
+    x, y, z = pt
+    return (x * lam * lam % P, y * lam ** 3 % P, z * lam % P)
+
+
+G1_ADD_EDGES = ("p1 identity", "p2 identity", "both identities",
+                "p1 == p2", "p1 == -p2", "generic")
+
+
+def g1_add_edge_lanes():
+    """(p1, p2) host Jacobian pairs, one a lane of `G1_ADD_EDGES`, each
+    point in its own Jacobian representation (Z != 1)."""
+    a = HC.g1_to_affine(HC.g1_mul(HC.G1_ONE, 0xA11CE))
+    b = HC.g1_to_affine(HC.g1_mul(HC.G1_ONE, 0xB0B))
+    pa, pb = (a[0], a[1], 1), (b[0], b[1], 1)
+    ident = (7, 11, 0)  # Z = 0, other coordinates arbitrary
+    neg_a = (a[0], P - a[1], 1)
+    return [(ident, g1_jac(pb, 5)), (g1_jac(pa, 3), ident),
+            (ident, g1_jac(ident, 9)), (g1_jac(pa, 3), g1_jac(pa, 17)),
+            (g1_jac(pa, 3), g1_jac(neg_a, 19)), (g1_jac(pa, 3), g1_jac(pb, 5))]
+
+
+def test_host_g1_add_edge_cases(host_lib):
+    """The tree-sum level's complete addition on its edge lanes
+    (`G1_ADD_EDGES`) through the cooperative host build at every group
+    size G, by canonical value and the declared bounds against the plain
+    body, and the sums against the host oracle."""
+    pairs = g1_add_edge_lanes()
+    x = np.stack([L.to_mont(L.from_ints([pr[k][c] for pr in pairs])).arr
+                  .numpy() for k in range(2) for c in range(3)])
+    for group in FK.INSTANCES["g1_add"]:
+        out = check_against_plain(host_lib, "g1_add", x, group=group)
+        got = [tuple(int(v) for v in col) for col in zip(*[
+            L.to_ints(L.from_mont(L.canon(e))) for e in out])]
+        for edge, (p1, p2), s in zip(G1_ADD_EDGES, pairs, got):
+            want = HC.g1_add(p1, p2)
+            assert HC.g1_eq(s, want), (edge, group)
+            assert (s[2] == 0) == (edge in ("both identities", "p1 == -p2"))
 
 
 LAZY = (1 << 262, 1 << 20)

@@ -112,11 +112,13 @@ FUSED_CHECK_LAUNCHES = {
         # 66 nonzero and 18 zero each
         "el_pow_step_mul": 132, "el_pow_step_sq": 36,
         "glv_dbl_add": BITS // 2,  # one ladder step per weight-half bit
+        "g1_add": 2,  # the signature tree-sum's levels over B = 4 rows
     },
     # the scan forms: one launch per Miller step op, per exp_u window two
     # cyclotomic squares and one product (3 x 31 windows); the powers and
-    # the GLV ladder leaf by leaf
-    False: {**_MILLER_SCAN, "fq12_mul": 21 + 93, "fq12_cyc_sq": 7 + 3 * 62},
+    # the GLV ladder leaf by leaf; the tree-sum's levels as with the knob
+    False: {**_MILLER_SCAN, "fq12_mul": 21 + 93, "fq12_cyc_sq": 7 + 3 * 62,
+            "g1_add": 2},
 }
 
 
