@@ -9,11 +9,18 @@ no longer the pairing check's). Run one on the card with
 
     python3 -m bench_gpu.control --fault <name> --workload <cell> \
         --seed <n> --seconds <s> --trace 0
+
+In a cell of several ranks (ranks.py) a fault planted in rank 0 is planted
+in every rank; the tests plant one in another rank alone.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
+import sys
+import time
+import types
 
 
 def _hard_part_skipped():
@@ -131,6 +138,45 @@ def _always_accept():
     return T, "fq12_is_one", lambda orig: (lambda a: orig(a) | True)
 
 
+def _allreduce_skipped():
+    """The exchange between chips left out: each rank's Fq12 product goes
+    to the final exponentiation alone."""
+    from bn254_tpu_torch.dist import collectives as COLL
+
+    return COLL, "fq12_allreduce_mul", lambda orig: (lambda f, mesh: f)
+
+
+def _rank_dies():
+    """A rank that dies at its next fused pass (plant it in a rank other
+    than 0: in rank 0 it ends the run itself)."""
+    from bn254_tpu_torch.dist import batch_verify as BV
+
+    return BV, "_fused_points", lambda orig: (lambda *a, **k: os._exit(9))
+
+
+def _rank_hangs():
+    """A rank that goes silent at its next fused pass (plant it in a rank
+    other than 0)."""
+    from bn254_tpu_torch.dist import batch_verify as BV
+
+    return BV, "_fused_points", lambda orig: (
+        lambda *a, **k: time.sleep(3600))
+
+
+def _loads_jax_package():
+    """A fused pass that loads a module under the JAX package's name (an
+    empty stand-in) into its process, and then runs as it does. Plant it
+    in a rank other than 0, in a process of its own: the module stays."""
+    from bn254_tpu_torch.dist import batch_verify as BV
+
+    def make(orig):
+        def fused_points(*args, **kwargs):
+            sys.modules.setdefault("bn254_tpu", types.ModuleType("bn254_tpu"))
+            return orig(*args, **kwargs)
+        return fused_points
+    return BV, "_fused_points", make
+
+
 FAULTS = {
     "hard_part_skipped": _hard_part_skipped,
     "exp_u_unchanged": _exp_u_unchanged,
@@ -141,8 +187,13 @@ FAULTS = {
     "half_independent": _half_independent,
     "hash_altered": _hash_altered,
     "always_accept": _always_accept,
+    "allreduce_skipped": _allreduce_skipped,
+    "rank_dies": _rank_dies,
+    "rank_hangs": _rank_hangs,
+    "loads_jax_package": _loads_jax_package,
 }
 CONTROL = "hard_part_skipped"
+ACTIVE: list[str] = []  # the names planted now, outermost first
 
 
 @contextlib.contextmanager
@@ -150,7 +201,9 @@ def planted(name: str):
     mod, attr, make = FAULTS[name]()
     orig = getattr(mod, attr)
     setattr(mod, attr, make(orig))
+    ACTIVE.append(name)
     try:
         yield
     finally:
+        ACTIVE.remove(name)
         setattr(mod, attr, orig)

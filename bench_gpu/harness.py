@@ -17,6 +17,16 @@ Every call's verdict is then held against the reference's, and for
 `SUM_SAMPLE` of the window's calls, drawn from the seed, the signature sum
 of each fused pass against the reference's sum of the same signatures
 under the weights the call drew.
+
+A cell that asks for n > 1 cards runs as n ranks, one process a card
+(ranks.py): this process is rank 0. It makes or loads the inputs, starts
+ranks 1..n-1, and builds the entry with its `RankInfo`; every rank makes
+the warm-up, window and profiled calls in step, rank 0 telling them each
+call before its clock starts. Rank 0 alone times, traces and profiles.
+After the window each rank hands rank 0 its verdicts, its `SumProbe`
+captures and its card's peak, and the check holds every rank's: its S row
+of a chunk is the sum over the lanes `mesh.shard_tree` gives it there.
+A cell on one card starts no process and runs as it always has.
 """
 
 from __future__ import annotations
@@ -29,7 +39,9 @@ import traceback
 
 import numpy as np
 
+from . import faults
 from . import inputs as INP
+from . import ranks as RK
 from . import spec
 from . import tracing as TR
 from .reference import bls
@@ -199,14 +211,17 @@ class SumProbe:
 
 
 def _sum_checks(captured, data, tuples: int, chunk: int,
-                half_bits: int) -> dict:
+                half_bits: int, rank: int = 0, world: int = 1) -> dict:
     """The sampled calls' weights and signature sums against the
     reference: `sum_mismatches`, the fused passes whose S differs from
-    sum_i [a_i + lambda b_i] sig_i over the chunk's tuples, or that are
-    missing or extra; `weights_out_of_range`, the weights drawn that are
-    not `tuples` GLV pairs (a, b) != (0, 0) of `half_bits` bits each."""
+    sum_i [a_i + lambda b_i] sig_i over the tuples of the chunk that
+    `rank` of `world` sums (its shard of the chunk, `mesh.shard_tree`),
+    or that are missing or extra; `weights_out_of_range`, the weights
+    drawn that are not `tuples` GLV pairs (a, b) != (0, 0) of `half_bits`
+    bits each."""
     mismatches = bad_weights = 0
     n_chunks = tuples // chunk
+    shard = chunk // world
     for index, draws, sums in captured:
         entry = data.entries[index % len(data.entries)]
         if len(draws) != 1 or draws[0] is None or len(draws[0][0]) != tuples:
@@ -219,15 +234,18 @@ def _sum_checks(captured, data, tuples: int, chunk: int,
         sigs = data.sigs_of(entry)
         mismatches += abs(len(sums) - n_chunks)
         for j, got in enumerate(sums[:n_chunks]):
-            lanes = slice(j * chunk, (j + 1) * chunk)
+            lo = j * chunk + rank * shard
+            lanes = slice(lo, lo + shard)
             want = bls.g1_glv_sum(a[lanes], b[lanes], sigs[lanes])
             mismatches += got != want
     return {"sum_mismatches": {"value": mismatches, "limit": 0},
             "weights_out_of_range": {"value": bad_weights, "limit": 0}}
 
 
-def _timed_call(caller, i, tracer, counters, probe=None,
-                sums=None) -> TR.Call:
+def _timed_call(caller, i, tracer, counters, probe=None, sums=None,
+                ranks=None) -> TR.Call:
+    if ranks is not None:
+        ranks.call(i, sums is not None)
     before = {k: TR.counter_value(t) for k, t in counters.items()}
     fell = probe.n if probe else 0
     if sums is not None:
@@ -259,22 +277,30 @@ def _verdicts_wrong(got, want) -> int:
     return int((got != want).sum())
 
 
-def run_cell(workload: str, seed: int, seconds: float, trace: bool,
+def run_cell(workload: str | dict, seed: int, seconds: float, trace: bool,
              device: str = "cuda", overrides: dict | None = None,
              traffic_overrides: dict | None = None, cache=INP.CACHE,
              warm_calls: int = WARM_CALLS, t_start: float | None = None,
-             log=sys.stderr) -> dict:
+             log=sys.stderr, rank_faults: dict | None = None) -> dict:
     """Run the cell once; returns the result (its keys as the last line
-    prints them). `overrides`, `traffic_overrides` and `warm_calls` shrink
-    a run for the CPU tests."""
+    prints them, and in a cell of several ranks `foreign`, each rank's
+    modules of JAX or the JAX package as "rank <r>: <name>"). `workload`:
+    the name of a cell of BENCHMARK.json, or a cell's keys (name, config,
+    traffic, chips), as the tests run one that it does not list. `overrides`
+    (`chips` too: the number of ranks), `traffic_overrides` and
+    `warm_calls` shrink a run for the CPU tests; `rank_faults`, {rank:
+    [fault names]}, plants faults in ranks other than 0 besides the faults
+    planted here."""
     t_start = time.perf_counter() if t_start is None else t_start
     import torch
 
-    wl = spec.workload(workload)
+    wl = spec.workload(workload) if isinstance(workload, str) else workload
+    workload = wl["name"]
     cfg = {**spec.config(wl["config"]), **(overrides or {})}
     traffic = {**spec.traffic(wl["traffic"]), **(traffic_overrides or {})}
     entry = spec.entry(cfg["entry"])
     _check_defaults(cfg, entry.READS_DEFAULT)
+    world = cfg["chips"]
     on_card = torch.device(device).type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     if on_card:
@@ -289,19 +315,35 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     data = INP.load(workload, cfg, traffic, seed, cache)
     print(f"inputs: {f'made in {made_s:.3f} s, not in setup_s, and' if made else ''}"
           f" loaded ({workload}, seed {seed})", file=log)
-    caller = entry.Caller(cfg, data, device)
-    tuples = caller.tuples
-    run = Run(tuples)
-    run.log = log
+    group = None
+    if world > 1:
+        group = RK.Ranks.start(
+            world, {"workload": wl, "seed": seed, "device": device,
+                    "overrides": overrides or {},
+                    "traffic_overrides": traffic_overrides or {},
+                    "cache": str(cache), "backend": cfg.get("backend")},
+            {r: faults.ACTIVE + (rank_faults or {}).get(r, [])
+             for r in range(1, world)}, log)
+    try:
+        caller = (entry.Caller(cfg, data, device) if group is None else
+                  entry.Caller(cfg, data, RK.device_for(device, 0),
+                               rank=group.info(cfg.get("backend"))))
+        tuples = caller.tuples
+        run = Run(tuples)
+        run.log = log
 
-    probe = FallbackProbe(cfg.get("fallback"))
-    checked: list[TR.Call] = []
-    for i in range(warm_calls):
-        c = _timed_call(caller, i, None, {}, probe=probe)
-        checked.append(c)
-        if i == 0:
-            run.first_call_s = c.seconds
-    sync()
+        probe = FallbackProbe(cfg.get("fallback"))
+        checked: list[TR.Call] = []
+        for i in range(warm_calls):
+            c = _timed_call(caller, i, None, {}, probe=probe, ranks=group)
+            checked.append(c)
+            if i == 0:
+                run.first_call_s = c.seconds
+        sync()
+    except BaseException:
+        if group is not None:
+            group.stop()
+        raise
     run.setup_s = time.perf_counter() - t_start - made_s
     setup_peak = torch.cuda.max_memory_allocated() if on_card else 0
 
@@ -317,7 +359,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         t0 = time.perf_counter()
         while True:
             run.calls.append(_timed_call(caller, i, tracer, counters,
-                                         probe=probe, sums=sums))
+                                         probe=probe, sums=sums,
+                                         ranks=group))
             i += 1
             if run.calls[-1].t1 - t0 >= seconds:
                 break
@@ -325,7 +368,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
                                  if on_card else None)
         if trace:
             run.profiled, run.trace = _profile(caller, i, tracer, counters,
-                                               on_card, probe)
+                                               on_card, probe, group)
     except Exception:  # a call that raises fails the run; report it
         traceback.print_exc(file=log)
         failed_tuples = tuples
@@ -334,6 +377,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
             tracer.restore()
         sums.restore()
         probe.restore()
+        if group is not None and not failed_tuples:
+            group.finish()
     checked += run.calls + run.profiled
     print(f"setup: {run.setup_s:.3f} s, warm-up calls "
           + " ".join(f"{c.seconds:.3f}" for c in checked[:warm_calls])
@@ -344,6 +389,13 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
 
     captured = sums.host()
     expected = {c.index: caller.expected(c.index) for c in checked}.get
+    if group is not None:
+        # every rank leaves the process group together, then exits; after
+        # a failed call the ranks are ended first
+        if failed_tuples:
+            group.stop()
+        caller.close()
+        group.stop(RK.RESULT_S)
     del caller  # the program's state, before the reference's work
     wrong = sum(_verdicts_wrong(c.verdict, expected(c.index))
                 for c in checked)
@@ -354,12 +406,22 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
             c.fell_back != (not bool(np.all(expected(c.index))))
             for c in checked), "limit": 0}
     t_ref = time.perf_counter()
-    checks.update(_sum_checks(captured, data, tuples,
-                              cfg.get("chunk", tuples),
-                              cfg["rlc_bits"] // 2))
-    print(f"reference: {len(captured)} sampled calls' signature sums in "
+    half_bits = cfg["rlc_bits"] // 2
+    chunk = cfg.get("chunk", tuples)
+    checks.update(_sum_checks(captured, data, tuples, chunk, half_bits,
+                              0, world))
+    failed_ranks, foreign = [], []
+    if group is not None:
+        failed_ranks, foreign = _rank_checks(checks, group, checked, expected,
+                                    [c[0] for c in captured], data, tuples,
+                                    chunk, half_bits)
+        peak = max([peak] + [res["peak"] for res in group.results.values()])
+    print(f"reference: {len(captured)} sampled calls' signature sums "
+          f"{f'on each of {world} ranks ' if group else ''}in "
           f"{time.perf_counter() - t_ref:.3f} s", file=log)
-    checks["failed_calls"] = {"value": int(failed_tuples > 0), "limit": 0}
+    checks["failed_calls"] = {"value": int(failed_tuples > 0
+                                           or bool(failed_ranks)),
+                              "limit": 0}
     correct = bool(run.calls) and all(
         v["value"] <= v["limit"] for v in checks.values())
 
@@ -370,7 +432,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
             metrics[name] = {"value": value, "unit": m["unit"]}
     dev = {"platform": "gpu" if on_card else "cpu",
            "kind": torch.cuda.get_device_name(0) if on_card else "cpu",
-           "count": wl["chips"], "memory_peak_bytes": int(peak)}
+           "count": world, "memory_peak_bytes": int(peak)}
     result = {"correct": correct,
               "attempted": tuples * len(checked),
               "failed": failed_tuples, "metrics": metrics, "device": dev}
@@ -381,11 +443,48 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     if tracer is not None and tracer.missing:
         print("trace: not found in the port: " + ", ".join(tracer.missing),
               file=log)
+    if group is not None:
+        result["foreign"] = foreign
     result["checks"] = checks
     return result
 
 
-def _profile(caller, i, tracer, counters, on_card, probe):
+def _rank_checks(checks, group, checked, expected, sampled, data, tuples,
+                 chunk, half_bits) -> list[int]:
+    """Add ranks 1..n-1's results to `checks`: each rank's verdict for
+    every call that rank 0 made, missing ones counting wrong; its S rows
+    and weight draws (`_sum_checks` over its shards), the calls that rank
+    0 sampled and it did not, or the other way round, counting every
+    chunk's row as a mismatch. Returns the ranks that failed (died, raised,
+    sent no result, or loaded JAX or the JAX package) and the modules
+    found, as "rank <r>: <name>"."""
+    failed, foreign = [], []
+    n_chunks = tuples // chunk
+    for r in range(1, group.world):
+        res = group.results.get(r)
+        found = [f"rank {r}: {m}" for m in (res or {}).get("foreign", [])]
+        foreign += found
+        if res is None or res["error"] is not None or found:
+            failed.append(r)
+            print(f"ranks: rank {r} failed: "
+                  + ("no result" if res is None else
+                     res["error"] or "loaded " + ", ".join(found)),
+                  file=group.log)
+        got = dict(res["verdicts"]) if res else {}
+        checks["wrong_verdicts"]["value"] += sum(
+            _verdicts_wrong(got[c.index], expected(c.index)) if c.index in got
+            else int(np.asarray(expected(c.index)).size) for c in checked)
+        captured = res["captured"] if res else []
+        mine = [c for c in captured if c[0] in sampled]
+        for k, v in _sum_checks(mine, data, tuples, chunk, half_bits,
+                                r, group.world).items():
+            checks[k]["value"] += v["value"]
+        checks["sum_mismatches"]["value"] += n_chunks * (
+            len(set(sampled) ^ {c[0] for c in captured}))
+    return failed, foreign
+
+
+def _profile(caller, i, tracer, counters, on_card, probe, ranks=None):
     """PROFILED_CALLS calls under torch.profiler; (calls, DeviceTrace).
     The spans stay to name the idle gaps, but read the host clock alone:
     a synchronisation at each edge would add idle time that the untraced
@@ -399,7 +498,7 @@ def _profile(caller, i, tracer, counters, on_card, probe):
     with profile(activities=acts) as prof:
         for j in range(PROFILED_CALLS):
             calls.append(_timed_call(caller, i + j, tracer, counters,
-                                     probe))
+                                     probe, ranks=ranks))
         if on_card:
             torch.cuda.synchronize()
     trace = TR.from_profiler(prof, calls[0].t0_ns, calls[-1].t1_ns)

@@ -9,7 +9,8 @@ line of standard output, and the numbers its check compares, each with its
 limit, as the last lines of standard error. It exits with another code than
 0, and prints no result, when there is no CUDA card or fewer than the cell
 asks for, when a BN254_* knob is set (the cell runs `config.DEFAULT`), or
-when JAX or the JAX package was loaded in this process.
+when JAX or the JAX package was loaded in this process or, in a cell of
+several ranks, in any other rank's.
 """
 
 from __future__ import annotations
@@ -61,7 +62,8 @@ def main(argv=None) -> int:
 
     result = harness.run_cell(args.workload, args.seed, args.seconds,
                               bool(args.trace), t_start=T_START)
-    found = foreign_modules()
+    # this process's, and in a cell of several ranks every other rank's
+    found = foreign_modules() + result.pop("foreign", [])
     if found:
         print("error: loaded in this process: " + ", ".join(found),
               file=sys.stderr)

@@ -26,8 +26,12 @@ def test_top_level_keys():
 def test_cell_pieces_by_name(cell):
     w = spec.workload(cell)
     assert set(w) == {"name", "config", "traffic", "chips", "why"}
-    assert w["chips"] == 1 and len(w["why"]) <= 200
+    assert w["chips"] in (1, 4) and len(w["why"]) <= 200
     cfg, traffic = spec.config(w["config"]), spec.traffic(w["traffic"])
+    # a cell on four cards runs one rank a card: its configuration states
+    # them, and each of its chunks divides over them
+    assert cfg["chips"] == w["chips"]
+    assert cfg.get("chunk", cfg["tuples"]) % w["chips"] == 0
     assert spec.entry(cfg["entry"]).Caller
     assert traffic["rotation"] and traffic["message_bytes"] > 0
     assert all(0 <= e["batch"] < traffic["distinct_batches"]
@@ -35,6 +39,12 @@ def test_cell_pieces_by_name(cell):
     kinds = {m["name"] for m in spec.metrics_for(cell, "end_to_end")}
     assert {"setup_s", "verifies_per_s"} <= kinds
     assert spec.metrics_for(cell, "per_layer")
+
+
+def test_four_chip_cells():
+    """At most a quarter of the cells (and always one) take four cards."""
+    four = [w for w in B["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(CELLS) // 4)
 
 
 @pytest.mark.parametrize("c", B["configs"], ids=lambda c: c["name"])
